@@ -1,0 +1,24 @@
+# The similarity self-join of the PyTorch port (GPU-Join of Gowanlock &
+# Karsin 2018, adapted per DESIGN.md), mirroring repro.core's names.
+from repro_torch.core.types import (  # noqa: F401
+    EngineConfig,
+    SelfJoinConfig,
+    SelfJoinResult,
+    SelfJoinStats,
+)
+from repro_torch.core.selfjoin import self_join  # noqa: F401
+from repro_torch.core.engine import SelfJoinEngine  # noqa: F401
+from repro_torch.core.snapshot import (  # noqa: F401
+    GridSnapshot,
+    make_dense_plan,
+    resolve_device,
+    snapshot_from_numpy,
+)
+from repro_torch.core.cost import (  # noqa: F401
+    TierDecision,
+    decide,
+    dense_join_cost,
+    indexed_join_cost,
+)
+from repro_torch.core.reorder import variance_reorder, estimate_dim_variance  # noqa: F401
+from repro_torch.core.grid import build_grid, build_tile_plan, GridIndex, TilePlan  # noqa: F401

@@ -1,0 +1,534 @@
+"""Device-resident self-join engine (DESIGN.md #1.5, #10), PyTorch port.
+
+The port of ``repro.core.engine`` for the self-join path.  Index
+construction (REORDER, grid build, tile-pair planning) runs on the host, as
+in the paper; everything downstream runs on the snapshot's device:
+
+  tiling       -- ``ops.make_tiles_device``: one gather on the device;
+  evaluation   -- the tile kernels (K1/K2 indexed with SHORTC, K3/K4
+                  dense), eps a runtime argument;
+  count scatter-- per-point counts accumulate with ``index_add_`` into the
+                  grid-sorted counts vector, in place;
+  pairs        -- rank-select compaction over the hit mask into a
+                  preallocated buffer, in place, with the exact overflow
+                  accounting of the JAX package.
+
+The candidate tile-pair list runs in fixed-size zero-padded chunks of the
+same sizes as in the JAX package, so chunk counts, dispatch counts, the
+``hit_cap`` window and the retry ladder match it step for step.  The chunk
+loop reads nothing back from the device until a pass ends.
+
+``repro_torch.core.selfjoin.self_join`` is a thin wrapper over this class.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import batching as batching_mod
+from repro_torch.core import cost as cost_mod
+from repro_torch.core.grid import GridIndex, TilePlan
+from repro_torch.core.snapshot import GridSnapshot
+from repro_torch.core.types import (
+    EngineConfig,
+    SelfJoinConfig,
+    SelfJoinResult,
+    SelfJoinStats,
+)
+from repro_torch.kernels import ops
+
+_MAX_AUTO_GROW = 8  # doublings before giving up on an auto-sized buffer
+
+
+# ---------------------------------------------------------------------------
+# Device steps.  Where the JAX code returned rebuilt arrays, these update the
+# running state (counts vector, pairs buffer, scalars) in place.
+# ---------------------------------------------------------------------------
+
+
+def _chunk_validity(tile_len, tile_start, pa, real, t):
+    """(pair_valid (C,), row validity (C,T), sorted positions (C,T) int64)."""
+    c = pa.shape[0]
+    dev = pa.device
+    lane = torch.arange(t, device=dev)
+    pal = pa.long()
+    pair_valid = torch.arange(c, device=dev) < real
+    valid = pair_valid[:, None] & (lane[None, :] < tile_len[pal][:, None])
+    idx = tile_start[pal].long()[:, None] + lane[None, :]
+    return pair_valid, valid, idx
+
+
+def count_chunk_step(
+    counts_sorted,  # (N + 1,) int32 running per-point counts, grid-sorted; row N is a sink
+    skipped_tot,    # ()  int32 running SHORTC skipped-block total
+    tiles,          # (num_tiles, T, n_pad) f32
+    tile_len,       # (num_tiles,) int32
+    tile_start,     # (num_tiles,) int32
+    pa, pb,         # (C,) int32 padded chunk of the candidate pair list
+    real,           # int: valid prefix of the chunk
+    eps,            # float search radius
+    *,
+    dim_block, shortc, backend,
+) -> None:
+    """One counts-mode chunk: evaluate + scatter-add, in place.
+
+    ``counts.at[idx].add(..., mode="drop")`` of the JAX package becomes an
+    ``index_add_`` whose invalid lanes land in the sink row ``N``.
+    """
+    counts, skipped = ops.eval_tile_pairs(
+        tiles, tile_len, pa, pb, eps,
+        dim_block=dim_block, shortc=shortc, backend=backend,
+    )
+    n = counts_sorted.shape[0] - 1
+    pair_valid, valid, idx = _chunk_validity(tile_len, tile_start, pa, real, tiles.shape[1])
+    idx = torch.where(valid, idx, n)
+    counts_sorted.index_add_(0, idx.reshape(-1), torch.where(valid, counts, 0).reshape(-1))
+    skipped_tot += torch.where(pair_valid, skipped, 0).sum(dtype=torch.int32)
+
+
+def pairs_chunk_step(
+    buf,            # (cap + hit_cap, 2) int32 result buffer, original ids
+    offset,         # ()  int32 pairs found so far (may exceed cap)
+    max_chunk_hits, # ()  int32 largest per-chunk hit count seen
+    tiles, tile_len, tile_start,
+    point_order,    # (N,) int32 grid-sorted -> original id
+    pa, pb, real, eps,
+    *,
+    hit_cap, dim_block, backend,
+) -> None:
+    """One pairs-mode chunk: evaluate + compact into ``buf``, in place.
+
+    Rank-select compaction, as in the JAX package: a row-wise prefix sum
+    over the hit mask gives every hit its global rank; ``searchsorted``
+    (left side) recovers the flat positions of ranks 1..hit_cap, and the
+    gathered (a, b) rows land in ``buf`` as one block of ``hit_cap`` rows at
+    ``min(offset, cap)``.  The JAX code's ``dynamic_update_slice`` becomes
+    an ``index_copy_`` at rows ``woff + arange(hit_cap)``, which keeps the
+    offset on the device (a Python slice would read it back every chunk);
+    the block always fits, since ``buf`` has ``cap + hit_cap`` rows.  Ranks
+    past the chunk's true hit count select clamped garbage that the next
+    block (or the final slice) overwrites.  ``offset`` advances by the exact
+    hit count, and ``max_chunk_hits`` tells the host when one chunk outgrew
+    the rank window.
+    """
+    _, _, mask = ops.eval_tile_pairs(
+        tiles, tile_len, pa, pb, eps,
+        dim_block=dim_block, shortc=True, backend=backend, return_mask=True,
+    )
+    t = tiles.shape[1]
+    c = pa.shape[0]
+    dev = buf.device
+    cap = buf.shape[0] - hit_cap
+
+    pair_valid = torch.arange(c, device=dev) < real
+    hits = (mask.bool() & pair_valid[:, None, None]).reshape(c, t * t).to(torch.int32)
+    row_cum = torch.cumsum(hits, dim=1, dtype=torch.int32)   # C independent prefix sums
+    row_tot = row_cum[:, -1]
+    base = torch.cumsum(row_tot, dim=0, dtype=torch.int32) - row_tot  # (C,) exclusive
+    cum = (row_cum + base[:, None]).reshape(-1)               # global inclusive ranks
+    nh = row_tot.sum(dtype=torch.int32)
+    ranks = torch.arange(1, hit_cap + 1, dtype=torch.int32, device=dev)
+    hit_idx = torch.searchsorted(cum, ranks).clamp_(max=c * t * t - 1)
+    p_ = hit_idx // (t * t)
+    i_ = (hit_idx // t) % t
+    j_ = hit_idx % t
+    # garbage ranks may point past a tail tile; clamp as the JAX gather does
+    last = point_order.shape[0] - 1
+    a_orig = point_order[(tile_start[pa[p_].long()].long() + i_).clamp_(max=last)]
+    b_orig = point_order[(tile_start[pb[p_].long()].long() + j_).clamp_(max=last)]
+    block = torch.stack([a_orig, b_orig], dim=1)             # (hit_cap, 2)
+    woff = torch.clamp(offset, max=cap).long()  # post-overflow blocks land in padding
+    buf.index_copy_(0, woff + torch.arange(hit_cap, device=dev), block)
+
+    offset += nh
+    torch.maximum(max_chunk_hits, nh, out=max_chunk_hits)
+
+
+def _unsort_counts(counts_sorted, point_order):
+    """Grid-sorted counts -> original point order (one device scatter)."""
+    out = torch.empty_like(counts_sorted)
+    out[point_order.long()] = counts_sorted
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The engine.
+# ---------------------------------------------------------------------------
+
+
+class SelfJoinEngine:
+    """Reusable device-resident self-join over one dataset snapshot.
+
+    Builds a ``GridSnapshot`` once (at construction, for ``config.eps``) on
+    ``device`` (default ``"cuda"``; without a card this raises unless
+    ``device="cpu"`` is given).  ``count()`` / ``pairs()`` / ``query()``
+    reuse the snapshot; querying a *larger* eps than the snapshot was built
+    for swaps in a rebuilt snapshot (a smaller eps reuses it -- the
+    candidate set is a superset, and the distance filter runs at the
+    queried eps).
+
+    ``eps == 0`` is supported (duplicates + self); the grid is then binned
+    at unit width.  The fp32 matmul-form numerics (DESIGN.md #6) make
+    exact-duplicate matches at eps near 0 a guarantee only on quantized
+    coordinates (e.g. a 1/64 grid).
+    """
+
+    def __init__(
+        self,
+        d: np.ndarray,
+        config: SelfJoinConfig,
+        engine_config: Optional[EngineConfig] = None,
+        *,
+        device="cuda",
+    ):
+        self.config = config
+        self.engine = engine_config or EngineConfig()
+        with obs.span(
+            "engine.snapshot_build", "plan", n=int(np.asarray(d).shape[0])
+        ):
+            self.snapshot = GridSnapshot.build(d, config, device=device)
+
+    @classmethod
+    def from_snapshot(
+        cls,
+        snapshot: GridSnapshot,
+        engine_config: Optional[EngineConfig] = None,
+    ) -> "SelfJoinEngine":
+        """Engine over an existing snapshot (no host build at all)."""
+        self = object.__new__(cls)
+        self.config = snapshot.config
+        self.engine = engine_config or EngineConfig()
+        self.snapshot = snapshot
+        return self
+
+    # -- snapshot management ----------------------------------------------
+
+    def swap_snapshot(self, snapshot: GridSnapshot) -> None:
+        """Replace the data snapshot behind the engine (one assignment)."""
+        if snapshot.config != self.config:
+            raise ValueError(
+                "snapshot was built under a different SelfJoinConfig"
+            )
+        self.snapshot = snapshot
+
+    def snapshot_for(self, eps: float) -> GridSnapshot:
+        """A snapshot whose index covers ``eps``, WITHOUT swapping."""
+        snap = self.snapshot
+        if snap.num_points == 0 or (
+            snap.index_eps is not None and eps <= snap.index_eps
+        ):
+            return snap
+        with obs.span(
+            "engine.snapshot_rebuild", "plan",
+            eps=eps, n=snap.num_points, pinned=True,
+        ):
+            return snap.rebuilt(eps)
+
+    def _ensure_index(self, eps: float) -> None:
+        snap = self.snapshot
+        if snap.num_points == 0:
+            return
+        if snap.index_eps is None or eps > snap.index_eps:
+            with obs.span(
+                "engine.snapshot_rebuild", "plan", eps=eps, n=snap.num_points
+            ):
+                self.swap_snapshot(snap.rebuilt(eps))
+
+    # -- delegating views ---------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.snapshot.device
+
+    @property
+    def num_points(self) -> int:
+        return self.snapshot.num_points
+
+    @property
+    def num_dims(self) -> int:
+        return self.snapshot.num_dims
+
+    @property
+    def grid(self) -> Optional[GridIndex]:
+        return self.snapshot.grid
+
+    @property
+    def plan(self) -> Optional[TilePlan]:
+        return self.snapshot.plan
+
+    @property
+    def n_pad(self) -> int:
+        """Padded dimension count of the tile layout (n -> dim_block multiple)."""
+        return self.snapshot.n_pad
+
+    def resolve_execution(
+        self, eps: Optional[float] = None,
+        snapshot: Optional[GridSnapshot] = None,
+    ) -> cost_mod.TierDecision:
+        """Cost-model tier decision for a self-join at ``eps`` (DESIGN.md #9)."""
+        eps = self.config.eps if eps is None else float(eps)
+        cfg = self.config
+        if snapshot is None:
+            if self.num_points == 0:
+                return cost_mod.decide(0.0, 0.0, cfg.execution)
+            self._ensure_index(eps)
+            snapshot = self.snapshot
+        if snapshot.num_points == 0:
+            return cost_mod.decide(0.0, 0.0, cfg.execution)
+        ci = cost_mod.indexed_join_cost(
+            snapshot.plan.num_pairs, snapshot.plan.num_candidates,
+            cfg.tile_size, snapshot.n_pad,
+        )
+        cd = cost_mod.dense_join_cost(
+            snapshot.num_points, snapshot.num_points,
+            cfg.tile_size, snapshot.n_pad,
+        )
+        return cost_mod.decide(ci, cd, cfg.execution)
+
+    def _base_stats(self, eps: float, snap: GridSnapshot) -> SelfJoinStats:
+        stats = SelfJoinStats(
+            num_points=snap.num_points,
+            num_dims=snap.num_dims,
+            k=min(self.config.k, snap.num_dims),
+        )
+        if snap.plan is not None:
+            stats.num_nonempty_cells = snap.grid.num_cells
+            stats.num_tiles = snap.plan.num_tiles
+            stats.num_tile_pairs_total = snap.plan.num_tile_pairs_total
+            stats.num_tile_pairs_evaluated = snap.plan.num_pairs
+            stats.num_candidates = snap.plan.num_candidates
+            stats.num_candidates_dense = snap.num_points * snap.num_points
+        return stats
+
+    @staticmethod
+    def _record_decision(stats: SelfJoinStats, dec: cost_mod.TierDecision) -> None:
+        stats.execution = dec.execution
+        stats.cost_indexed = dec.cost_indexed
+        stats.cost_dense = dec.cost_dense
+
+    # -- queries ----------------------------------------------------------
+
+    def _self_tables(self, dec: cost_mod.TierDecision, snap: GridSnapshot):
+        """Device tables of the tier ``dec`` chose, one tuple for both modes.
+
+        Returns ``(tiles, tile_len, tile_start, chunks_fn, plan, backend,
+        shortc)``.  Both tiers address the same grid-sorted point space.
+        """
+        cfg = self.config
+        if dec.execution == "dense":
+            dt = snap.dense_tables()
+            return (
+                dt.tiles, dt.tile_len, dt.tile_start, dt.chunks, dt.plan,
+                ops.backend_name("dense", cfg.use_pallas), False,
+            )
+        return (
+            snap.tiles, snap.tile_len, snap.tile_start, snap.chunks,
+            snap.plan, ops.backend_name("indexed", cfg.use_pallas), cfg.shortc,
+        )
+
+    def count(self, eps: Optional[float] = None) -> SelfJoinResult:
+        """Per-point neighbour counts (original order); no pair buffer."""
+        eps = self.config.eps if eps is None else float(eps)
+        if self.num_points == 0:
+            return SelfJoinResult(
+                counts=np.zeros(0, np.int64),
+                stats=self._base_stats(eps, self.snapshot),
+            )
+        self._ensure_index(eps)
+        snap = self.snapshot
+        cfg, eng = self.config, self.engine
+        dec = self.resolve_execution(eps)
+        tiles, tile_len, tile_start, chunks, plan, backend, shortc = (
+            self._self_tables(dec, snap)
+        )
+        stats = self._base_stats(eps, snap)
+        self._record_decision(stats, dec)
+        if dec.execution == "dense":
+            stats.num_tile_pairs_evaluated = plan.num_pairs
+            stats.num_candidates = plan.num_candidates
+
+        dev = snap.device
+        counts_sorted = torch.zeros(snap.num_points + 1, dtype=torch.int32, device=dev)
+        skipped_tot = torch.zeros((), dtype=torch.int32, device=dev)
+        with obs.span(
+            "engine.count", "join",
+            n=snap.num_points, eps=eps, tier=dec.execution,
+        ):
+            for pa, pb, real in chunks(eng.count_chunk):
+                with obs.span("engine.count.chunk", "dispatch"):
+                    count_chunk_step(
+                        counts_sorted, skipped_tot,
+                        tiles, tile_len, tile_start,
+                        pa, pb, real, eps,
+                        dim_block=cfg.dim_block, shortc=shortc, backend=backend,
+                    )
+                stats.num_chunks += 1
+                stats.num_device_dispatches += 1
+            counts = (
+                _unsort_counts(counts_sorted[:-1], snap.point_order)
+                .cpu().numpy().astype(np.int64)
+            )
+        stats.num_results = int(counts.sum())
+        stats.dim_blocks_skipped = int(skipped_tot)
+        stats.dim_blocks_total = plan.num_pairs * snap.num_dim_blocks
+        obs.mirror_selfjoin_stats(stats, path="engine", mode="count")
+        return SelfJoinResult(counts=counts, stats=stats)
+
+    def pairs(
+        self,
+        eps: Optional[float] = None,
+        max_pairs: Optional[int] = None,
+        _cap_hint: Optional[int] = None,
+    ) -> SelfJoinResult:
+        """Counts plus the materialized (a, b) pair list, original ids.
+
+        With an explicit ``max_pairs`` (here or in ``EngineConfig``),
+        overflow raises ``RuntimeError``.  Otherwise the buffer is sized
+        from the paper's result-size estimate (Sec. 3.2.2); on overflow the
+        exact |R| is known after the pass, so the buffer regrows to it in a
+        single retry.  ``_cap_hint`` lets ``query()`` supply one shared
+        auto-mode capacity for a whole eps sweep.
+        """
+        eps = self.config.eps if eps is None else float(eps)
+        if self.num_points == 0:
+            return SelfJoinResult(
+                counts=np.zeros(0, np.int64),
+                stats=self._base_stats(eps, self.snapshot),
+                pairs=np.zeros((0, 2), np.int32),
+            )
+        self._ensure_index(eps)
+        snap = self.snapshot
+        cfg, eng = self.config, self.engine
+        dec = self.resolve_execution(eps)
+        tiles, tile_len, tile_start, chunks, plan, backend, _ = (
+            self._self_tables(dec, snap)
+        )
+
+        explicit = max_pairs if max_pairs is not None else eng.max_pairs
+        auto = explicit is None
+        if not auto:
+            cap = int(explicit)
+        elif _cap_hint is not None:
+            cap = int(_cap_hint)
+        else:
+            cap = self._auto_capacity(eps, dec)
+        t = cfg.tile_size
+        flat_per_chunk = eng.pairs_chunk * t * t
+        hit_cap = min(flat_per_chunk, 4096)
+
+        dev = snap.device
+        retries = 0
+        dispatches = 0
+        while True:
+            stats = self._base_stats(eps, snap)
+            self._record_decision(stats, dec)
+            if dec.execution == "dense":
+                stats.num_tile_pairs_evaluated = plan.num_pairs
+                stats.num_candidates = plan.num_candidates
+            buf = torch.zeros((cap + hit_cap, 2), dtype=torch.int32, device=dev)
+            offset = torch.zeros((), dtype=torch.int32, device=dev)
+            max_hits = torch.zeros((), dtype=torch.int32, device=dev)
+            with obs.span(
+                "engine.pairs", "join",
+                n=snap.num_points, eps=eps, tier=dec.execution,
+                attempt=retries,
+            ):
+                for pa, pb, real in chunks(eng.pairs_chunk):
+                    with obs.span("engine.pairs.chunk", "dispatch"):
+                        pairs_chunk_step(
+                            buf, offset, max_hits,
+                            tiles, tile_len, tile_start,
+                            snap.point_order, pa, pb, real, eps,
+                            hit_cap=hit_cap, dim_block=cfg.dim_block,
+                            backend=backend,
+                        )
+                    stats.num_chunks += 1
+                    dispatches += 1
+                num = int(offset)
+            # exact totals are known after a full pass, so each overflow kind
+            # resolves in one retry: widen the per-chunk rank window first,
+            # then (auto mode) regrow the buffer to the true |R|.
+            if int(max_hits) > hit_cap and retries < _MAX_AUTO_GROW:
+                obs.event(
+                    "engine.pairs.retry", "retry", kind="hit_cap",
+                    max_hits=int(max_hits), hit_cap=hit_cap,
+                )
+                hit_cap = min(flat_per_chunk, -(-int(max_hits) // 1024) * 1024)
+                retries += 1
+                continue
+            if num > cap:
+                if auto and eng.auto_grow and retries < _MAX_AUTO_GROW:
+                    obs.event(
+                        "engine.pairs.retry", "retry", kind="capacity",
+                        num=num, cap=cap,
+                    )
+                    cap = batching_mod.suggest_pairs_capacity(num, 1.0)
+                    retries += 1
+                    continue
+                raise RuntimeError(
+                    f"result exceeded max_pairs={cap}; raise the cap or "
+                    f"lower eps"
+                )
+            break
+
+        found = buf[:num]
+        pairs = found.cpu().numpy()
+        counts = (
+            torch.bincount(found[:, 0].long(), minlength=snap.num_points)
+            .cpu().numpy().astype(np.int64)
+        )
+        stats.num_results = int(counts.sum())
+        stats.dim_blocks_total = plan.num_pairs * snap.num_dim_blocks
+        stats.pairs_capacity = cap
+        stats.overflow_retries = retries
+        stats.num_device_dispatches = dispatches
+        obs.mirror_selfjoin_stats(stats, path="engine", mode="pairs")
+        return SelfJoinResult(counts=counts, stats=stats, pairs=pairs)
+
+    def _auto_capacity(self, eps: float, dec: cost_mod.TierDecision) -> int:
+        """Auto-mode pairs-buffer capacity from the paper's |R| estimate.
+
+        The estimate samples the *chosen* tier's candidate pair list with
+        that tier's kernel, so the capacity reflects the tables that will
+        actually run.
+        """
+        cfg, eng = self.config, self.engine
+        tiles, tile_len, _, _, plan, backend, _ = self._self_tables(
+            dec, self.snapshot
+        )
+        est = batching_mod.estimate_result_size(
+            tiles, tile_len, plan, eps=eps,
+            dim_block=cfg.dim_block, backend=backend,
+            sample_frac=cfg.sample_frac,
+        )
+        return batching_mod.suggest_pairs_capacity(est, eng.pairs_headroom)
+
+    def query(
+        self,
+        eps_values: Sequence[float],
+        return_pairs: bool = False,
+        max_pairs: Optional[int] = None,
+    ) -> List[SelfJoinResult]:
+        """Multi-eps sweep over one snapshot.
+
+        The snapshot is built once at ``max(eps_values)``; in auto-sized
+        pairs mode the result-size estimate also runs once, at the largest
+        eps -- its capacity bounds every smaller sweep point.
+        """
+        eps_list = [float(e) for e in eps_values]
+        if eps_list and self.num_points:
+            self._ensure_index(max(eps_list))
+        if return_pairs:
+            cap_hint = None
+            explicit = max_pairs if max_pairs is not None else self.engine.max_pairs
+            if explicit is None and eps_list and self.num_points:
+                dec = self.resolve_execution(max(eps_list))
+                cap_hint = self._auto_capacity(max(eps_list), dec)
+            return [
+                self.pairs(e, max_pairs=max_pairs, _cap_hint=cap_hint)
+                for e in eps_list
+            ]
+        return [self.count(e) for e in eps_list]

@@ -1,0 +1,307 @@
+"""Immutable data snapshot of the self-join engine (DESIGN.md #10).
+
+The port of ``repro.core.snapshot``.  ``GridSnapshot`` holds everything
+derived from the point set -- the points, the REORDER permutation, the
+grid, the tile plan, the device tile tables and the lazy dense-tier tables
+-- on one ``torch.device``.  ``SelfJoinEngine`` holds only configuration,
+so swapping a new snapshot behind an engine is one reference assignment.
+
+Shape buckets: the device tile table (``tile_rows``) and the dense tile
+table (``dense_rows``) are padded to power-of-two row buckets
+(``grid.bucket_rows``), and ``rebuilt`` carries the old buckets forward as
+floors, exactly as in the JAX package.  Padding tile rows carry
+``tile_len == 0`` and are never referenced by a candidate pair list.
+
+``snapshot_from_numpy`` carries a snapshot across packages: it takes the
+JAX package's ``GridSnapshot`` arrays as numpy and places them on a device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.grid import (
+    GridIndex,
+    TilePlan,
+    bucket_rows,
+    build_grid,
+    build_tile_plan,
+    pad_axis0,
+)
+from repro_torch.core.reorder import apply_reorder, variance_reorder
+from repro_torch.core.types import SelfJoinConfig
+from repro_torch.kernels import ops
+
+# sentinel for GridSnapshot.build's perm argument: "compute it from the
+# config", as opposed to an explicit permutation (or explicit None)
+_AUTO_PERM = "auto"
+
+Chunk = Tuple[torch.Tensor, torch.Tensor, int]
+
+
+def resolve_device(device) -> torch.device:
+    """The ``torch.device`` an entry point runs on; raises rather than fall back.
+
+    ``"cuda"`` (the default of every entry point) needs a card: without one
+    this raises, and the caller must ask for ``device="cpu"`` explicitly,
+    where every kernel runs its plain PyTorch version.
+    """
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be a cuda or cpu device, got {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU"
+        )
+    return dev
+
+
+def _chunk_list(
+    pair_a: np.ndarray, pair_b: np.ndarray, chunk: int, cache: dict, device
+) -> List[Chunk]:
+    """Padded device chunks of a candidate pair list, cached per chunk size."""
+    got = cache.get(chunk)
+    if got is None:
+        got = [
+            (pa, pb, real)
+            for _, pa, pb, real in ops._chunks(pair_a, pair_b, chunk, device)
+        ]
+        cache[chunk] = got
+    return got
+
+
+def make_dense_plan(n_points: int, tile_size: int) -> TilePlan:
+    """Sequential full-tile plan: the dense tier's work list.
+
+    The dense tier re-tiles ``pts_sorted`` sequentially -- every tile full
+    except the last -- and lists the complete tile cross product.  Same
+    ``TilePlan`` type, same chunk steps downstream.
+    """
+    t = int(tile_size)
+    num_tiles = -(-int(n_points) // t) if n_points else 0
+    tile_start = np.arange(num_tiles, dtype=np.int64) * t
+    tile_len = np.minimum(int(n_points) - tile_start, t)
+    idx = np.arange(num_tiles, dtype=np.int64)
+    return TilePlan(
+        tile_size=t,
+        tile_start=tile_start.astype(np.int32),
+        tile_len=tile_len.astype(np.int32),
+        tile_cell=np.zeros(num_tiles, np.int32),  # no cells in the dense tier
+        pair_a=np.repeat(idx, num_tiles).astype(np.int32),
+        pair_b=np.tile(idx, num_tiles).astype(np.int32),
+        num_tile_pairs_total=num_tiles * num_tiles,
+        num_candidates=int(n_points) * int(n_points),
+    )
+
+
+@dataclasses.dataclass
+class DenseTables:
+    """Device-resident dense-tier twin of the snapshot's indexed tables."""
+
+    plan: TilePlan
+    tiles: torch.Tensor       # (dense_rows, T, n_pad) f32, sequential layout
+    tile_len: torch.Tensor    # (dense_rows,) int32; padding rows are 0
+    tile_start: torch.Tensor  # (dense_rows,) int32 into pts_sorted
+    _chunk_cache: Dict[int, list] = dataclasses.field(default_factory=dict)
+
+    def chunks(self, chunk: int) -> List[Chunk]:
+        return _chunk_list(self.plan.pair_a, self.plan.pair_b, chunk,
+                           self._chunk_cache, self.tiles.device)
+
+
+class GridSnapshot:
+    """One dataset's complete, frozen index state, resident on ``device``.
+
+    Construct via ``build`` (REORDER, grid, tile plan, device placement),
+    ``from_arrays`` (arrays already built, only device placement runs) or
+    ``rebuilt`` (same points at a larger radius, same permutation, buckets
+    floored at this snapshot's).
+    """
+
+    __slots__ = (
+        "config", "device", "pts", "perm", "work", "index_eps", "grid", "plan",
+        "num_points", "num_dims", "tile_rows", "dense_rows",
+        "tiles", "tile_len", "tile_start", "point_order", "_dense",
+        "_chunk_cache",
+    )
+
+    def __init__(
+        self,
+        config: SelfJoinConfig,
+        pts: np.ndarray,
+        perm: Optional[np.ndarray],
+        work: np.ndarray,
+        index_eps: Optional[float],
+        grid: Optional[GridIndex],
+        plan: Optional[TilePlan],
+        *,
+        device,
+        min_tile_rows: int = 1,
+        min_dense_rows: int = 1,
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        self.pts = pts
+        self.perm = perm
+        self.work = work
+        self.index_eps = None if index_eps is None else float(index_eps)
+        self.grid = grid
+        self.plan = plan
+        self.num_points, self.num_dims = pts.shape
+        n_tiles = plan.num_tiles if plan is not None else 0
+        self.tile_rows = bucket_rows(n_tiles, min_tile_rows)
+        self.dense_rows = bucket_rows(
+            -(-self.num_points // config.tile_size), min_dense_rows
+        )
+        self._dense: Optional[DenseTables] = None
+        self._chunk_cache: dict = {}
+        if grid is not None:
+            self.tile_start = self._int32(pad_axis0(plan.tile_start, self.tile_rows))
+            self.tile_len = self._int32(pad_axis0(plan.tile_len, self.tile_rows))
+            # the grid-sort permutation (position -> original id), N rows
+            self.point_order = self._int32(grid.point_order)
+            self.tiles = ops.make_tiles_device(
+                torch.from_numpy(grid.pts_sorted).to(self.device),
+                self.tile_start,
+                self.tile_len,
+                tile_size=config.tile_size,
+                dim_block=config.dim_block,
+            )
+        else:
+            self.tiles = None
+            self.tile_len = None
+            self.tile_start = None
+            self.point_order = None
+
+    def _int32(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        d: np.ndarray,
+        config: SelfJoinConfig,
+        eps: Optional[float] = None,
+        *,
+        perm=_AUTO_PERM,
+        device="cuda",
+        min_tile_rows: int = 1,
+        min_dense_rows: int = 1,
+    ) -> "GridSnapshot":
+        """Full index build: REORDER (unless ``perm`` is given), grid, plan."""
+        dev = resolve_device(device)  # before any host work
+        pts = np.ascontiguousarray(np.asarray(d, dtype=np.float32))
+        eps = config.eps if eps is None else float(eps)
+        if isinstance(perm, str) and perm == _AUTO_PERM:
+            perm = None
+            if config.reorder and pts.shape[0]:
+                _, perm = variance_reorder(pts, config.sample_frac)
+        elif perm is not None:
+            perm = np.asarray(perm)
+        work = pts if perm is None else apply_reorder(pts, perm)
+        grid = plan = None
+        index_eps = None
+        if pts.shape[0]:
+            grid = build_grid(work, eps, config.k)  # eps=0-safe (unit bins)
+            plan = build_tile_plan(grid, config.tile_size, config.sortidu)
+            index_eps = float(eps)
+        return cls(
+            config, pts, perm, work, index_eps, grid, plan,
+            device=dev,
+            min_tile_rows=min_tile_rows,
+            min_dense_rows=min_dense_rows,
+        )
+
+    @classmethod
+    def from_arrays(
+        cls,
+        pts: np.ndarray,
+        perm: Optional[np.ndarray],
+        grid: Optional[GridIndex],
+        plan: Optional[TilePlan],
+        index_eps: Optional[float],
+        config: SelfJoinConfig,
+        *,
+        device="cuda",
+    ) -> "GridSnapshot":
+        """Snapshot over already-built arrays: only device placement runs."""
+        pts = np.ascontiguousarray(np.asarray(pts, dtype=np.float32))
+        perm = None if perm is None else np.asarray(perm)
+        work = pts if perm is None else apply_reorder(pts, perm)
+        return cls(config, pts, perm, work, index_eps, grid, plan, device=device)
+
+    def rebuilt(self, eps: float) -> "GridSnapshot":
+        """Same points, same permutation, new grid at ``eps``, buckets floored."""
+        return GridSnapshot.build(
+            self.pts, self.config, eps,
+            perm=self.perm,
+            device=self.device,
+            min_tile_rows=self.tile_rows,
+            min_dense_rows=self.dense_rows,
+        )
+
+    # -- derived views -----------------------------------------------------
+
+    @property
+    def n_pad(self) -> int:
+        """Padded dimension count of the tile layout (n -> dim_block multiple)."""
+        db = self.config.dim_block
+        return ((self.num_dims + db - 1) // db) * db
+
+    @property
+    def num_dim_blocks(self) -> int:
+        return self.tiles.shape[2] // self.config.dim_block
+
+    def chunks(self, chunk: int) -> List[Chunk]:
+        """Padded device chunks of the self-join candidate pair list."""
+        return _chunk_list(
+            self.plan.pair_a, self.plan.pair_b, chunk, self._chunk_cache, self.device
+        )
+
+    def dense_tables(self) -> DenseTables:
+        """Build (lazily, once per snapshot) the dense-tier tables."""
+        if self._dense is None:
+            cfg = self.config
+            plan = make_dense_plan(self.num_points, cfg.tile_size)
+            start = self._int32(pad_axis0(plan.tile_start, self.dense_rows))
+            length = self._int32(pad_axis0(plan.tile_len, self.dense_rows))
+            tiles = ops.make_tiles_device(
+                torch.from_numpy(self.grid.pts_sorted).to(self.device),
+                start,
+                length,
+                tile_size=cfg.tile_size,
+                dim_block=cfg.dim_block,
+            )
+            self._dense = DenseTables(
+                plan=plan, tiles=tiles, tile_len=length, tile_start=start
+            )
+        return self._dense
+
+
+def snapshot_from_numpy(fields: dict, config: SelfJoinConfig, device="cuda") -> GridSnapshot:
+    """The port's ``GridSnapshot`` over another package's snapshot arrays.
+
+    ``fields`` holds numpy arrays and scalars under ``"pts"``, ``"perm"``
+    (or None), ``"index_eps"`` (or None), ``"grid"`` (a dict of every
+    ``GridIndex`` field, or None) and ``"plan"`` (a dict of every
+    ``TilePlan`` field, or None) -- e.g. ``dataclasses.asdict`` of the JAX
+    package's ``GridSnapshot.grid`` / ``.plan``.  The counterpart of
+    ``repro.core.snapshot.GridSnapshot.from_arrays``.
+    """
+    grid = fields.get("grid")
+    plan = fields.get("plan")
+    return GridSnapshot.from_arrays(
+        fields["pts"],
+        fields.get("perm"),
+        None if grid is None else GridIndex(**grid),
+        None if plan is None else TilePlan(**plan),
+        fields.get("index_eps"),
+        config,
+        device=device,
+    )

@@ -1,0 +1,152 @@
+"""Span tracing + metrics registry of the PyTorch port (DESIGN.md #11).
+
+A copy of the JAX package's ``repro.obs`` (kept separate so that
+``repro_torch`` imports nothing of that package), without the jax profiler
+bridge.  The port's engine emits the same spans and events at the same
+seams as the reference engine, so ``capture()`` windows read alike:
+
+    from repro_torch import obs
+
+    with obs.capture() as cap:
+        engine.pairs()
+    assert cap.span_count(cat="dispatch") == result.stats.num_device_dispatches
+
+Mirroring and recording only happen while tracing is enabled (normally via
+``obs.capture()``), so production paths pay a single attribute check.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from repro_torch.obs import trace as _trace_mod
+from repro_torch.obs.metrics import REGISTRY, MetricsRegistry, metric_value
+from repro_torch.obs.trace import (
+    DEFAULT_CAPACITY,
+    SpanEvent,
+    clear,
+    disable,
+    dropped_count,
+    enable,
+    enabled,
+    event,
+    event_count,
+    events,
+    span,
+    to_chrome_trace,
+    write_chrome_trace,
+)
+
+__all__ = [
+    "DEFAULT_CAPACITY",
+    "SpanEvent",
+    "MetricsRegistry",
+    "REGISTRY",
+    "metric_value",
+    "enable",
+    "disable",
+    "enabled",
+    "clear",
+    "events",
+    "event_count",
+    "dropped_count",
+    "span",
+    "event",
+    "to_chrome_trace",
+    "write_chrome_trace",
+    "mirror_selfjoin_stats",
+    "Capture",
+    "capture",
+]
+
+
+def mirror_selfjoin_stats(stats, *, path: str, mode: str) -> None:
+    """Mirror a completed join's ``SelfJoinStats`` into the registry.
+
+    ``path`` names the execution path ("engine"), ``mode`` the result shape
+    ("count", "pairs").  The tier label is the tier that actually ran.
+    Counts mirror 1:1, with the same metric names as the JAX package.
+    """
+    if not _trace_mod._state.enabled:
+        return
+    tier = stats.execution or "indexed"
+    labels = dict(path=path, mode=mode, tier=tier)
+    c = REGISTRY.counter
+    c("selfjoin_joins_total", "completed self-join calls").inc(1, **labels)
+    c("selfjoin_device_dispatches_total", "host->device program launches").inc(
+        stats.num_device_dispatches, **labels
+    )
+    c("selfjoin_chunks_total", "chunk programs in the final attempt").inc(
+        stats.num_chunks, **labels
+    )
+    c("selfjoin_candidates_total", "point comparisons evaluated").inc(
+        stats.num_candidates, **labels
+    )
+    c("selfjoin_results_total", "result rows (|R|)").inc(stats.num_results, **labels)
+    c("selfjoin_overflow_retries_total", "pairs-buffer regrow retries").inc(
+        stats.overflow_retries, **labels
+    )
+
+
+class Capture:
+    """Result of an ``obs.capture()`` window: events, registry delta, drops."""
+
+    def __init__(self):
+        self.events: List[SpanEvent] = []
+        self.metrics: Dict = {}
+        self.dropped: int = 0
+
+    def spans(self, name: Optional[str] = None, cat: Optional[str] = None) -> List[SpanEvent]:
+        return [
+            e
+            for e in self.events
+            if (name is None or e.name == name) and (cat is None or e.cat == cat)
+        ]
+
+    def span_count(self, name: Optional[str] = None, cat: Optional[str] = None) -> int:
+        return len(self.spans(name, cat))
+
+    def metric(self, name: str, **labels) -> float:
+        """Summed registry delta for ``name`` (labels filter as a subset)."""
+        return metric_value(self.metrics, name, **labels)
+
+    def write_chrome_trace(self, path: str) -> str:
+        return write_chrome_trace(path, self.events)
+
+
+class capture:
+    """Context manager: record spans + a registry delta over a window.
+
+    Enables the tracer on entry (fresh ring buffer) and restores the
+    previous tracer state on exit.
+    """
+
+    def __init__(
+        self,
+        capacity: int = DEFAULT_CAPACITY,
+        *,
+        registry: Optional[MetricsRegistry] = None,
+    ):
+        self._capacity = capacity
+        self._registry = registry if registry is not None else REGISTRY
+        self._cap: Optional[Capture] = None
+        self._before: Optional[Dict] = None
+        self._prev_enabled = False
+
+    def __enter__(self) -> Capture:
+        self._prev_enabled = enabled()
+        enable(self._capacity)
+        self._before = self._registry.snapshot()
+        self._cap = Capture()
+        return self._cap
+
+    def __exit__(self, exc_type, exc, tb):
+        cap = self._cap
+        cap.events = events()
+        cap.dropped = dropped_count()
+        cap.metrics = self._registry.diff(self._before)
+        disable()
+        clear()
+        if self._prev_enabled:
+            enable(self._capacity)
+        return False

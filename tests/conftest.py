@@ -37,6 +37,13 @@ def dataset_case(request):
 _call_durations = []
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips without one",
+    )
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--budget-seconds",

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels (K1-K4) against their plain versions, on the card.
+
+Every test here needs an NVIDIA card and skips without one.  On a machine
+with a card (no JAX needed, so the shared conftest is skipped):
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Inputs are 1/64-quantized, so counts, skipped blocks and masks compare with
+``==``; the end-to-end test holds the engine on the card against the same
+engine on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
+from repro_torch.kernels import dense_tile, distance_tile
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(8, 8, 8), (16, 24, 8), (32, 64, 32), (64, 32, 32), (100, 40, 40), (128, 96, 48), (5, 3, 8)]
+KERNELS = [
+    (distance_tile.tile_pair_distance, distance_tile.tile_pair_distance_plain, distance_tile.LAUNCHES,
+     "tile_pair_distance"),
+    (dense_tile.dense_tile_distance, dense_tile.dense_tile_distance_plain, dense_tile.LAUNCHES,
+     "dense_tile_distance"),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tiles(t, n, db, seed, far, device):
+    rng = np.random.default_rng(seed)
+    n_pad = -(-n // db) * db
+    pts = np.zeros((7, t, n_pad), np.float32)
+    pts[:, :, :n] = np.round(rng.random((7, t, n)) * 64) / 64
+    lens = rng.integers(0, t + 1, size=7).astype(np.int32)
+    lens[:2] = t
+    if far:  # tile 1 far from tile 0: SHORTC stops after the first block
+        pts[0, :, :n] = 0.0
+        pts[1, :, :n] = 0.90625
+    for i in range(7):
+        pts[i, lens[i]:] = 0.0
+    pairs = rng.integers(0, 7, size=(50, 2)).astype(np.int32)
+    pairs[:3] = [[0, 1], [1, 0], [0, 0]]
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (pts, lens, pairs[:, 0], pairs[:, 1])]
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("return_mask", [False, True])
+@pytest.mark.parametrize("t,n,db", SHAPES)
+def test_kernels_equal_plain_versions(cuda, t, n, db, return_mask, far):
+    args = _tiles(t, n, db, seed=t * 7 + n, far=far, device=cuda)
+    eps = 0.05 if far else 0.3
+    for wrapper, plain, launches, key in KERNELS:
+        key = key + ("_mask" if return_mask else "")
+        before = launches[key]
+        got = wrapper(*args, eps=eps, dim_block=db, return_mask=return_mask)
+        torch.cuda.synchronize()
+        assert launches[key] == before + 1
+        want = plain(*args, eps=eps, dim_block=db, return_mask=return_mask)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g, w)
+    if far and n_blocks_of(n, db) > 1:
+        skipped = distance_tile.tile_pair_distance(*args, eps=eps, dim_block=db)[1]
+        assert int(skipped[0]) == n_blocks_of(n, db) - 1
+
+
+def n_blocks_of(n, db):
+    return -(-n // db)
+
+
+def test_tile_size_above_the_limit_raises(cuda):
+    args = _tiles(8, 8, 8, seed=0, far=False, device=cuda)
+    big = torch.zeros((2, 129, 8), dtype=torch.float32, device=cuda)
+    lens = torch.full((2,), 129, dtype=torch.int32, device=cuda)
+    for wrapper, _, _, _ in KERNELS:
+        with pytest.raises(ValueError, match="1..128"):
+            wrapper(big, lens, args[2][:2] % 2, args[3][:2] % 2, eps=0.1, dim_block=8)
+        with pytest.raises(ValueError, match="int32"):
+            wrapper(args[0], args[1].long(), args[2], args[3], eps=0.1, dim_block=8)
+
+
+@pytest.mark.parametrize("mode", ["indexed", "dense", "auto"])
+def test_engine_on_the_card_equals_the_cpu(cuda, mode):
+    rng = np.random.default_rng(5)
+    d = (np.round(rng.exponential(1 / 40, size=(3000, 16)).clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=0.06, execution=mode)
+    eng = EngineConfig(count_chunk=256, pairs_chunk=64)
+    card = SelfJoinEngine(d, cfg, eng, device=cuda)
+    host = SelfJoinEngine(d, cfg, eng, device="cpu")
+    for got, want in ((card.count(), host.count()), (card.pairs(), host.pairs())):
+        np.testing.assert_array_equal(got.counts, want.counts)
+        assert got.stats == want.stats
+    got_p = card.pairs().pairs
+    want_p = host.pairs().pairs
+    assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
