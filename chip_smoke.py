@@ -20,11 +20,21 @@ Phases, each printing one JSON line:
    config, spot-checked against a float64 brute force on the card;
 4. pairs   -- ``SelfJoinEngine.pairs`` and the dense tier (``self_join``
    with execution="dense", counts and pairs) on CoocTexture (68,040 x 16)
-   at eps=0.1.
+   at eps=0.1;
+5. attention -- ``flash_attention`` (K5), whose path is its own entry
+   point (the self-join never calls it): a sweep against its plain version
+   (causal or not, Sq == Sk or not, head widths 16..256, f32 and bf16,
+   default and explicit scale, several chunk pairs), then one call each at
+   the full attention width of two models of the repo's configs (qwen3-32b,
+   deepseek-v2-236b MLA; bf16, causal), held against the plain version and
+   timed beside it, beside ``scaled_dot_product_attention`` (a yardstick
+   only) and beside the bound.  The sweep runs right after phase 2's, so a
+   faulty kernel fails the run before the long phases.
 
 Kernel launch counters are set to 0 just before phase 3 and read just after
-phase 4; a kernel that the main path never launched fails the run.  The
-line before the last lists every kernel with its numbers; the last line is
+phase 4, and K5's just before and after its two full-width calls; a kernel
+that its path never launched fails the run.  The line before the last lists
+every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
 imports nothing of the JAX package.
 """
@@ -42,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 BOUNDARY_REL = 1e-5       # raw fp32 data: a count may differ only for pairs
                           # (a, b) whose float64 d2 lies within
@@ -63,6 +74,24 @@ KERNELS = {
                             "src/repro/kernels/dense_tile.py:98", False),
     "dense_tile_distance_mask": ("dense_tile", "src/repro_torch/csrc/dense_tile.cu",
                                  "src/repro/kernels/dense_tile.py:85", True),
+    "flash_attention": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81", False),
+}
+TILE_KERNELS = [name for name, spec in KERNELS.items() if spec[0] != "flash_attention"]
+
+# phase 5: the sweep (K5 against its plain version) and the full-width shapes
+ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256)]
+ATTN_LENS = [(128, 128), (96, 160), (160, 96)]    # ragged against the kernel's 64-row tiles
+ATTN_CHUNKS = [(32, 32), (16, 32), (512, 512)]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX tests' own; bf16: one output rounding
+ATTN_SHAPES = {
+    # bf16, causal; K and V carry all BH heads (the kernel takes one BH)
+    "qwen3-32b": dict(bh=64, s=8192, dh=128, dv=128, q_chunk=512, k_chunk=1024,
+                      source="src/repro/configs/qwen3_32b.py:16-18 (64 heads, head_dim 128), "
+                             "batch 1; chunks: ModelCfg defaults, src/repro/models/config.py:97-98"),
+    "deepseek-v2-236b": dict(bh=128, s=4096, dh=192, dv=128, q_chunk=1024, k_chunk=4096,
+                             source="src/repro/configs/deepseek_v2_236b.py:18,28-30,40-41 "
+                                    "(128 heads, MLA qk 128+64, v 128; chunks 1024/4096), batch 1"),
 }
 
 
@@ -89,19 +118,25 @@ def ptxas_summary(text: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
-            name = ("tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
-                    if args else m.group(1))
+            flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", m.group(1))
+            if args:
+                name = "tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
+            elif flash:
+                name = "flash_fwd_kernel<%s,NV=%s>" % ("f32" if flash.group(1) == "f" else "bf16", flash.group(2))
+            else:
+                name = m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out.append({"kernel": name, "spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))})
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and name:
             rec = next((r for r in out if r["kernel"] == name), None)
             if rec is None:
                 rec = {"kernel": name}
                 out.append(rec)
-            rec.update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+            smem = re.search(r"(\d+) bytes smem", line)  # static only; none for flash_fwd_kernel
+            rec.update(registers=int(m.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
     return out
 
 
@@ -138,7 +173,7 @@ def kernel_fns():
         return (lambda *a, **kw: dense_tile.dense_tile_distance(*a, return_mask=mask, **kw),
                 lambda *a, **kw: dense_tile.dense_tile_distance_plain(*a, return_mask=mask, **kw))
 
-    return {name: k(name) for name in KERNELS}
+    return {name: k(name) for name in TILE_KERNELS}
 
 
 def sweep_case(torch, np, t, n, db, seed, far=False):
@@ -340,6 +375,170 @@ def phase_real_width(torch, np, fns, inputs):
     return rows
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+
+def attn_inputs(torch, np, bh, sq, sk, dh, dv, dtype, seed):
+    """q, k, v on the card: standard normal f32 from a numpy seed, cast to dtype."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
+            for shape in ((bh, sq, dh), (bh, sk, dh), (bh, sk, dv))]
+
+
+def attn_check(torch, got, want, dtype_name, what):
+    """Fail unless got is finite and |got - want| <= tol (1 + |want|) in f32;
+    returns the max abs error."""
+    tol = ATTN_TOL[dtype_name]
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape or type differs from plain")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    check(bool((diff <= tol + tol * w.abs()).all()), f"{what}: differs from plain beyond {tol}")
+    return float(diff.max())
+
+
+def phase_attention_sweep(torch, np, fa):
+    """K5 against its plain version over head widths, lengths, masks, scales,
+    types and chunk pairs (the lengths are ragged against the kernel's tiles)."""
+    worst = {name: 0.0 for name in ATTN_TOL}
+    cases = 0
+    for dh, dv in ATTN_DIMS:
+        for sq, sk in ATTN_LENS:
+            for causal in (False, True):
+                for scale in (None, 0.125):
+                    for dtype in ATTN_TOL:
+                        qc, kc = ATTN_CHUNKS[cases % len(ATTN_CHUNKS)]
+                        q, k, v = attn_inputs(torch, np, 3, sq, sk, dh, dv, getattr(torch, dtype), seed=2000 + cases)
+                        kw = dict(causal=causal, q_chunk=qc, k_chunk=kc, scale=scale)
+                        got = fa.flash_attention(q, k, v, **kw)
+                        want = fa.flash_attention_plain(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        err = attn_check(torch, got, want, dtype,
+                                         f"flash_attention dh={dh} dv={dv} sq={sq} sk={sk} causal={causal} "
+                                         f"scale={scale} {dtype} chunks=({qc},{kc})")
+                        worst[dtype] = max(worst[dtype], err)
+                        cases += 1
+    rec = {"phase": "attention_sweep", "cases": cases, "max_abs_err": worst, "tolerance": ATTN_TOL}
+    emit(rec)
+    return rec
+
+
+def attn_bound(bh, sq, sk, dh, dv, causal, elem_bytes, peak_flops):
+    """Least time on the card, ms: max(bytes / HBM rate, flop / peak).
+
+    Bytes: q, k, v read once and o written once.  Flop: 2 (dh + dv) per live
+    (row, col) pair and head, where live counts the causal pairs (top-left
+    aligned: row r sees min(r + 1, sk) keys), not the masked ones.
+    """
+    if causal:
+        n = min(sq, sk)
+        live = n * (n + 1) // 2 + max(sq - sk, 0) * sk
+    else:
+        live = sq * sk
+    flop = 2 * live * (dh + dv) * bh
+    nbytes = bh * (sq * dh + sk * dh + sk * dv + sq * dv) * elem_bytes
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = flop / peak_flops * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops else "operations"), nbytes, flop
+
+
+def event_ms(torch, fn, iters):
+    """Time per call from CUDA events around ``iters`` back-to-back calls,
+    after one call to warm up.  At phase 5's sizes every call keeps the card
+    busy for a millisecond or more, so the host's gaps between launches are
+    hidden behind the device work.  (torch.profiler, which phase 2 and the
+    profile phase use, recorded no device time in its first session after
+    the profile phase in one run on the card.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_yardstick(torch, q, k, v, scale, got):
+    """torch's scaled_dot_product_attention on the same tensors (4-D views,
+    is_causal, the same scale), timed as library_ms and never used by the
+    port.  Returns (ms, max abs difference to K5, None), or
+    (None, None, SDPA's reason) where it refuses the shape."""
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+    run = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, scale=scale)  # noqa: E731
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        reason = str(exc).strip().splitlines()[0][:300]
+        print(f"chip_smoke: scaled_dot_product_attention refused: {reason}", flush=True)
+        return None, None, reason
+    diff = float((out[0].float() - got.float()).abs().max())
+    del out
+    return event_ms(torch, run, iters=10), diff, None
+
+
+def phase_attention(torch, np, fa):
+    """K5's path at full width: one call per model shape with the launch
+    counter from 0, then each output against the plain version, and the
+    kernel, plain, SDPA and bound times."""
+    inputs = {name: attn_inputs(torch, np, c["bh"], c["s"], c["s"], c["dh"], c["dv"], torch.bfloat16, seed=i)
+              for i, (name, c) in enumerate(ATTN_SHAPES.items())}
+    fa.LAUNCHES["flash_attention"] = 0
+    outs = {}
+    t0 = time.perf_counter()
+    for name, c in ATTN_SHAPES.items():
+        outs[name] = fa.flash_attention(*inputs[name], causal=True, q_chunk=c["q_chunk"], k_chunk=c["k_chunk"])
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    check(launches > 0, "flash_attention was never launched on its path")
+
+    shapes = {}
+    for name, c in ATTN_SHAPES.items():
+        q, k, v = inputs.pop(name)
+        got = outs.pop(name)
+        kw = dict(causal=True, q_chunk=c["q_chunk"], k_chunk=c["k_chunk"])
+        err = attn_check(torch, got, fa.flash_attention_plain(q, k, v, **kw), "bfloat16", f"flash_attention at {name}")
+        run_k = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        run_p = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        k_ms = event_ms(torch, run_k, iters=5)
+        p_ms = event_ms(torch, run_p, iters=3)
+        scale = float(c["dh"]) ** -0.5
+        l_ms, l_diff, l_refused = sdpa_yardstick(torch, q, k, v, scale, got)
+        b_ms, b_by, nbytes, flop = attn_bound(c["bh"], c["s"], c["s"], c["dh"], c["dv"], True, 2, PEAK_BF16_FLOPS)
+        shapes[name] = {
+            "source": c["source"], "bh": c["bh"], "sq": c["s"], "sk": c["s"], "dh": c["dh"], "dv": c["dv"],
+            "q_chunk": c["q_chunk"], "k_chunk": c["k_chunk"], "dtype": "bfloat16", "causal": True,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "library_refused": l_refused,
+            "library_max_abs_diff": l_diff, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flop": flop,
+            "useful_tflops": flop / k_ms / 1e9,
+        }
+    rec = {"phase": "attention", "timing": "CUDA events per call over back-to-back calls", "launches": launches,
+           "path_s": path_s, "shapes": shapes, "smi": smi_sample()}
+    emit(rec)
+    return rec
+
+
+def attention_row(attn):
+    """K5's entry of the kernels line: the first shape's numbers, the largest
+    error over all shapes, and every shape's numbers."""
+    first, *_ = attn["shapes"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "name": "flash_attention", "route": "cuda", "source": KERNELS["flash_attention"][1],
+        "replaces": KERNELS["flash_attention"][2], "launches": attn["launches"],
+        **{key: attn["shapes"][first][key] for key in keys},
+        "max_abs_err": max(sh["max_abs_err"] for sh in attn["shapes"].values()),
+        "path": "phase 5: flash_attention's own entry point at full width (phases 3-4 never call it)",
+        "at": first, "shapes": {name: {key: sh[key] for key in keys} for name, sh in attn["shapes"].items()},
+    }
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
 
@@ -476,7 +675,7 @@ def main() -> int:
     try:
         from repro_torch.core import SelfJoinConfig, SelfJoinEngine, self_join
         from repro_torch.data import paper_dataset
-        from repro_torch.kernels import _build, dense_tile, distance_tile
+        from repro_torch.kernels import _build, dense_tile, distance_tile, flash_attention
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})", file=sys.stderr)
         return 2
@@ -487,6 +686,7 @@ def main() -> int:
     phase_device(torch, _build)
     fns = kernel_fns()
     emit({"phase": "kernels_sweep", **phase_sweep(torch, np, fns)})
+    phase_attention_sweep(torch, np, flash_attention)
 
     # main-path inputs: build the phase-3 and phase-4 engines (host plans)
     syn = paper_dataset("Syn16D2M", SYN_N / 2_000_000)
@@ -537,15 +737,18 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     phase_profile(torch, syn_engine)  # after the counters are read
+    attn = phase_attention(torch, np, flash_attention)
 
-    emit({"kernels": [
+    rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
          "launches": launches[name], "max_abs_err": real[name]["max_abs_err"],
          "ms": real[name]["ms"], "plain_ms": real[name]["plain_ms"],
          "bound_ms": real[name]["bound_ms"], "bound_by": real[name]["bound_by"],
          "library_ms": real[name]["library_ms"]}
-        for name in KERNELS
-    ], "wall_s": time.perf_counter() - t_start})
+        for name in TILE_KERNELS
+    ]
+    rows.append(attention_row(attn))
+    emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +28,7 @@ from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("distance_tile", "dense_tile")
+SOURCES = ("distance_tile", "dense_tile", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +48,9 @@ SIGNATURES = {
         "dense_tile_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
         "dense_tile_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     },
+    "flash_attention": {
+        "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -63,10 +67,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library of ``csrc/<name>.cu`` lives (hash of sources + flags)."""
+    """Where the built library of ``csrc/<name>.cu`` lives (hash of the source,
+    the ``csrc/`` headers it includes, and the flags)."""
+    src = CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    headers = sorted(set(re.findall(rb'#include "([^"]+)"', text)))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        h.update(src.read_bytes())
+    for part in [text] + [(CSRC / hdr.decode()).read_bytes() for hdr in headers]:
+        h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -151,3 +159,20 @@ def launch_tile_kernel(source, symbol, tiles, tile_len, pair_a, pair_b, eps2, di
         )
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError {err}")
+
+
+def launch_flash_attention(q, k, v, out, scale, causal) -> None:
+    """Launch ``flash_attention_fwd`` of ``csrc/flash_attention.cu`` on the
+    current stream; the caller has checked the tensors (``flash_attention.py``).
+    Raises if the launch was refused (``cudaGetLastError() != 0``)."""
+    bh, sq, dh = q.shape
+    sk, dv = v.shape[1], v.shape[2]
+    fn = function("flash_attention", "flash_attention_fwd")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bh, sq, sk, dh, dv, scale, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd: CUDA launch failed with cudaError {err}")

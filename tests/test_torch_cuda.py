@@ -1,20 +1,21 @@
-"""The port's CUDA kernels (K1-K4) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K5) against their plain versions, on the card.
 
 Every test here needs an NVIDIA card and skips without one.  On a machine
 with a card (no JAX needed, so the shared conftest is skipped):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Inputs are 1/64-quantized, so counts, skipped blocks and masks compare with
-``==``; the end-to-end test holds the engine on the card against the same
-engine on the CPU.
+Tile inputs are 1/64-quantized, so counts, skipped blocks and masks compare
+with ``==``; the end-to-end test holds the engine on the card against the
+same engine on the CPU.  Flash attention compares within 2e-5 in f32 and
+2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
-from repro_torch.kernels import dense_tile, distance_tile
+from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +105,51 @@ def test_engine_on_the_card_equals_the_cpu(cuda, mode):
     got_p = card.pairs().pairs
     want_p = host.pairs().pairs
     assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
+
+
+ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256)]
+ATTN_LENS = [(128, 128), (96, 160), (160, 96)]     # ragged against the kernel's 64-row tiles
+ATTN_CHUNKS = [(32, 32), (16, 32), (512, 512)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(bh, sq, sk, dh, dv, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device=device, dtype=dtype)
+            for shape in ((bh, sq, dh), (bh, sk, dh), (bh, sk, dv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,dv", ATTN_DIMS)
+def test_flash_attention_equals_plain_version(cuda, dh, dv, causal, dtype):
+    for i, (sq, sk) in enumerate(ATTN_LENS):
+        qc, kc = ATTN_CHUNKS[(i + dh) % len(ATTN_CHUNKS)]
+        for scale in (None, 0.125):
+            q, k, v = _qkv(3, sq, sk, dh, dv, dtype, seed=dh * 31 + dv + i, device=cuda)
+            before = flash_attention.LAUNCHES["flash_attention"]
+            got = flash_attention.flash_attention(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc, scale=scale)
+            torch.cuda.synchronize()
+            assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+            want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc,
+                                                         scale=scale)
+            assert got.device.type == "cuda" and got.dtype == dtype and got.shape == (3, sq, dv)
+            tol = ATTN_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(2, 64, 64, 32, 32, torch.float32, seed=0, device=cuda)
+    before = flash_attention.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    wide = torch.zeros((2, 64, 320), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="value widths 1..256"):
+        flash_attention.flash_attention(q, k, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="must divide chunks"):
+        flash_attention.flash_attention(q, k, v, q_chunk=48)
+    assert flash_attention.LAUNCHES["flash_attention"] == before
