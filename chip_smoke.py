@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
 
 1. device  -- card name and power limit (nvidia-smi), build of every CUDA
    source in src/repro_torch/csrc with nvcc (one process per source, in
-   parallel), and the registers / shared memory / spills ptxas reports;
+   parallel), the registers / shared memory / spills ptxas reports for
+   every instantiation (and its warnings about the wgmma kernel), and the
+   count of HGMMA (tensor-core wgmma) instructions in the SASS of K5's
+   tensor-core library (cuobjdump; 0 fails the run);
 2. kernels -- each kernel (K1-K4) against its plain PyTorch version on the
    card: a sweep of tile sizes and dim blocks on 1/64-quantized tiles
    (counts, skipped and mask must be equal), then the main path's own
@@ -22,15 +25,22 @@ Phases, each printing one JSON line:
    with execution="dense", counts and pairs) on CoocTexture (68,040 x 16)
    at eps=0.1;
 5. attention -- ``flash_attention`` (K5), whose path is its own entry
-   point (the self-join never calls it): a sweep against its plain version
-   (causal or not, Sq == Sk or not, head widths 16..256, f32 and bf16,
-   default and explicit scale, several chunk pairs), then one call each at
-   the full attention width of two models of the repo's configs (qwen3-32b,
-   deepseek-v2-236b MLA; bf16, causal), held against the plain version
-   within one bf16 rounding of the output, and timed beside it, beside
-   ``scaled_dot_product_attention`` (a yardstick only) and beside the
-   bound.  Its sweep and its full-width part each run right after phase
-   2's, so a faulty kernel fails the run before the long phases;
+   point (the self-join never calls it).  It has two CUDA routes: bf16 with
+   head widths that are multiples of 8 up to 256 goes to the tensor-core kernel
+   (``flash_attention_wgmma``), f32 and other bf16 widths to the CUDA-core
+   kernel (``flash_attention``).  A sweep against the plain version (causal
+   or not, Sq == Sk or not, head widths 16..256 and one outside the
+   tensor-core kernel's, f32 and bf16, default and explicit scale, several
+   chunk pairs; each call must count one launch of its route's kernel),
+   then one call each at the full attention width of two models of the
+   repo's configs (qwen3-32b, deepseek-v2-236b MLA; bf16, causal), which
+   must launch the tensor-core kernel only, held against the plain
+   version within one bf16 rounding of the output, and timed beside the
+   CUDA-core kernel on the same inputs, the plain version,
+   ``scaled_dot_product_attention`` (a yardstick only, with its own error
+   against the plain version) and the bound.  Its sweep and its full-width
+   part each run right after phase 2's, so a faulty kernel fails the run
+   before the long phases;
 6. profile -- a window of Syn16D2M count chunks under torch.profiler: the
    device's busy share and its top kernels.  It runs before phase 3.
 
@@ -52,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -83,22 +94,25 @@ KERNELS = {
                             "src/repro/kernels/dense_tile.py:98", False),
     "dense_tile_distance_mask": ("dense_tile", "src/repro_torch/csrc/dense_tile.cu",
                                  "src/repro/kernels/dense_tile.py:85", True),
-    "flash_attention": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:81", False),
+    "flash_attention_wgmma": ("flash_attention", "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                              "src/repro/kernels/flash_attention.py:81", False),
 }
 TILE_KERNELS = [name for name, spec in KERNELS.items() if spec[0] != "flash_attention"]
 
 # phase 5: the sweep (K5 against its plain version) and the full-width shapes
-ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256)]
-ATTN_LENS = [(128, 128), (96, 160), (160, 96)]    # ragged against the kernel's 64-row tiles
+ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
+             (20, 12)]  # not multiples of 8: bf16 stays on the CUDA-core kernel
+ATTN_LENS = [(128, 128), (96, 160), (160, 96)]    # ragged against the kernels' 64- and 128-row tiles
 ATTN_CHUNKS = [(32, 32), (16, 32), (512, 512)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX tests' own; bf16: one output rounding
 # full width, bf16: |got - want| <= rtol |want| + atol.  The kernel and the
 # plain version agree in f32 to ~1e-5 of the output (summation order, the
-# running max, expf), then each rounds to bf16 (8 significant bits), so they
+# running max, exp; the tensor-core kernel carries p as bf16 hi + lo, ~16
+# significant bits), then each rounds to bf16 (8 significant bits), so they
 # are equal or one bf16 step apart, and a step is at most 2^-7 |want|.  The
 # atol covers the f32 disagreement where |want| is near 0.  At these widths
-# a typical |o| is 0.03-0.04, so 2e-2 (1 + |want|) would pass a wrong kernel.
+# a typical |o| is 0.03-0.04, so 2e-2 (1 + |want|) would pass a wrong kernel;
+# p rounded to bf16 alone fails this limit (tests/test_torch_flash.py).
 ATTN_FULL_TOL = (2.0 ** -7, 1e-4)
 ATTN_SHAPES = {
     # bf16, causal; K and V carry all BH heads (the kernel takes one BH)
@@ -135,10 +149,13 @@ def ptxas_summary(text: str):
         if m:
             args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
             flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", m.group(1))
+            wgmma = re.search(r"flash_wgmma_kernelILi(\d)ELi(\d)E", m.group(1))
             if args:
                 name = "tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
             elif flash:
                 name = "flash_fwd_kernel<%s,NV=%s>" % ("f32" if flash.group(1) == "f" else "bf16", flash.group(2))
+            elif wgmma:  # 64-column blocks of dh and dv
+                name = "flash_wgmma_kernel<DHB=%s,DVB=%s>" % wgmma.groups()
             else:
                 name = m.group(1)
             continue
@@ -151,9 +168,36 @@ def ptxas_summary(text: str):
             if rec is None:
                 rec = {"kernel": name}
                 out.append(rec)
-            smem = re.search(r"(\d+) bytes smem", line)  # static only; none for flash_fwd_kernel
+            smem = re.search(r"(\d+) bytes smem", line)  # static only; none for the flash kernels
             rec.update(registers=int(m.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
     return out
+
+
+def ptxas_warnings(text: str):
+    """ptxas's warnings and performance notes (ignored setmaxnreg, C7508;
+    serialized wgmma), as printed."""
+    return [line.strip() for line in text.splitlines()
+            if re.search(r"warning|Performance Loss|setmaxnreg|C75\d\d", line)]
+
+
+def hgmma_counts(path):
+    """Per kernel, the HGMMA (wgmma) instructions in the SASS of the library
+    ``path`` (``cuobjdump -sass``); None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = re.search(r"flash_wgmma_kernelILi(\d)ELi(\d)E", m.group(1))
+            name = "flash_wgmma_kernel<DHB=%s,DVB=%s>" % fn.groups() if fn else m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHGMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_device(torch, _build):
@@ -165,13 +209,19 @@ def phase_device(torch, _build):
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    hgmma = hgmma_counts(_build.library_path("flash_attention_wgmma"))
     emit({
         "phase": "device", "nvidia_smi": smi,
         "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s,
         "ptxas": {n: ptxas_summary(_build.ptxas_report(n)) for n in _build.SOURCES},
+        "ptxas_warnings_wgmma": ptxas_warnings(_build.ptxas_report("flash_attention_wgmma")),
+        "hgmma_per_kernel": hgmma if hgmma is not None else "cuobjdump missing",
+        "hgmma_total": sum(hgmma.values()) if hgmma is not None else None,
     })
+    if hgmma is not None:
+        check(sum(hgmma.values()) > 0, "no HGMMA instruction in the SASS of flash_attention_wgmma")
     return smi
 
 
@@ -421,8 +471,10 @@ def attn_check(torch, got, want, rtol, atol, what):
 
 def phase_attention_sweep(torch, np, fa):
     """K5 against its plain version over head widths, lengths, masks, scales,
-    types and chunk pairs (the lengths are ragged against the kernel's tiles)."""
-    worst = {name: 0.0 for name in ATTN_TOL}
+    types and chunk pairs (the lengths are ragged against the kernels'
+    tiles); each call must count one launch of its route's kernel.  Reports
+    the cases and the largest error per route and type."""
+    worst, per_route = {}, {}
     cases = 0
     for dh, dv in ATTN_DIMS:
         for sq, sk in ATTN_LENS:
@@ -432,15 +484,24 @@ def phase_attention_sweep(torch, np, fa):
                         qc, kc = ATTN_CHUNKS[cases % len(ATTN_CHUNKS)]
                         q, k, v = attn_inputs(torch, np, 3, sq, sk, dh, dv, getattr(torch, dtype), seed=2000 + cases)
                         kw = dict(causal=causal, q_chunk=qc, k_chunk=kc, scale=scale)
+                        route = fa._route(q, v)
+                        before = dict(fa.LAUNCHES)
                         got = fa.flash_attention(q, k, v, **kw)
                         want = fa.flash_attention_plain(q, k, v, **kw)
                         torch.cuda.synchronize()
-                        err, _ = attn_check(torch, got, want, ATTN_TOL[dtype], ATTN_TOL[dtype],
-                                            f"flash_attention dh={dh} dv={dv} sq={sq} sk={sk} causal={causal} "
-                                            f"scale={scale} {dtype} chunks=({qc},{kc})")
-                        worst[dtype] = max(worst[dtype], err)
+                        what = (f"flash_attention ({route}) dh={dh} dv={dv} sq={sq} sk={sk} causal={causal} "
+                                f"scale={scale} {dtype} chunks=({qc},{kc})")
+                        expect = {key: n + (key == fa.ROUTE_KERNEL[route]) for key, n in before.items()}
+                        check(fa.LAUNCHES == expect, f"{what}: launches {fa.LAUNCHES}, expected {expect}")
+                        err, _ = attn_check(torch, got, want, ATTN_TOL[dtype], ATTN_TOL[dtype], what)
+                        key = f"{route}/{dtype}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        per_route[key] = per_route.get(key, 0) + 1
                         cases += 1
-    rec = {"phase": "attention_sweep", "cases": cases, "max_abs_err": worst, "tolerance": ATTN_TOL}
+    for key in ("wgmma/bfloat16", "cuda_core/float32", "cuda_core/bfloat16"):
+        check(per_route.get(key, 0) > 0, f"the attention sweep never took route {key}")
+    rec = {"phase": "attention_sweep", "cases": cases, "cases_per_route": per_route,
+           "max_abs_err": worst, "tolerance": ATTN_TOL}
     emit(rec)
     return rec
 
@@ -481,11 +542,14 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def sdpa_yardstick(torch, q, k, v, scale, got):
+def sdpa_yardstick(torch, q, k, v, scale, got, want):
     """torch's scaled_dot_product_attention on the same tensors (4-D views,
     is_causal, the same scale), timed as library_ms and never used by the
-    port.  Returns (ms, max abs difference to K5, None), or
-    (None, None, SDPA's reason) where it refuses the shape."""
+    port.  Returns (ms, max abs difference to K5, SDPA's largest
+    |sdpa - plain| / (rtol |plain| + atol) under ATTN_FULL_TOL, None), or
+    (None, None, None, SDPA's reason) where it refuses the shape.  SDPA
+    rounds P to bf16 (cuDNN / flash backends), so its ratio may exceed 1:
+    a yardstick of a less exact function, not a failure."""
     import torch.nn.functional as F
 
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
@@ -496,28 +560,36 @@ def sdpa_yardstick(torch, q, k, v, scale, got):
     except RuntimeError as exc:
         reason = str(exc).strip().splitlines()[0][:300]
         print(f"chip_smoke: scaled_dot_product_attention refused: {reason}", flush=True)
-        return None, None, reason
-    diff = float((out[0].float() - got.float()).abs().max())
-    del out
-    return event_ms(torch, run, iters=10), diff, None
+        return None, None, None, reason
+    o, w = out[0].float(), want.float()
+    diff = float((o - got.float()).abs().max())
+    rtol, atol = ATTN_FULL_TOL
+    ratio = float(((o - w).abs() / (rtol * w.abs() + atol)).max())
+    del out, o, w
+    return event_ms(torch, run, iters=10), diff, ratio, None
 
 
 def phase_attention(torch, np, fa):
     """K5's path at full width: one call per model shape with the launch
-    counter from 0, then each output against the plain version within
-    ATTN_FULL_TOL, and the kernel, plain, SDPA (CUDA events; the kernel
-    also by torch.profiler) and bound times."""
+    counters from 0 (only the tensor-core kernel may launch), then each
+    output against the plain version within ATTN_FULL_TOL, and the kernel,
+    the CUDA-core kernel on the same inputs (``earlier``), plain, SDPA (CUDA
+    events; the kernel also by torch.profiler), bound and design floor."""
     inputs = {name: attn_inputs(torch, np, c["bh"], c["s"], c["s"], c["dh"], c["dv"], torch.bfloat16, seed=i)
               for i, (name, c) in enumerate(ATTN_SHAPES.items())}
-    fa.LAUNCHES["flash_attention"] = 0
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
     outs = {}
     t0 = time.perf_counter()
     for name, c in ATTN_SHAPES.items():
         outs[name] = fa.flash_attention(*inputs[name], causal=True, q_chunk=c["q_chunk"], k_chunk=c["k_chunk"])
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES["flash_attention"]
-    check(launches > 0, "flash_attention was never launched on its path")
+    launches = dict(fa.LAUNCHES)
+    check(launches["flash_attention_wgmma"] == len(ATTN_SHAPES),
+          f"the full-width calls launched {launches}, not the tensor-core kernel once per shape")
+    check(all(n == 0 for key, n in launches.items() if key != "flash_attention_wgmma"),
+          f"the full-width calls launched another kernel: {launches}")
 
     shapes = {}
     for name, c in ATTN_SHAPES.items():
@@ -527,26 +599,35 @@ def phase_attention(torch, np, fa):
         want = fa.flash_attention_plain(q, k, v, **kw)
         err, err_share = attn_check(torch, got, want, *ATTN_FULL_TOL, f"flash_attention at {name}")
         mean_abs = float(want.float().abs().mean())
+        scale = float(c["dh"]) ** -0.5
+        # the CUDA-core kernel (K5's bf16 route before the tensor-core kernel) on the same inputs
+        run_e = lambda: fa._launch("cuda_core", q, k, v, True, scale)  # noqa: E731
+        e_err, e_share = attn_check(torch, run_e(), want, *ATTN_FULL_TOL, f"CUDA-core flash_attention at {name}")
+        l_ms, l_diff, l_share, l_refused = sdpa_yardstick(torch, q, k, v, scale, got, want)
         del want
         run_k = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         run_p = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
         k_ms = event_ms(torch, run_k, iters=5)
-        k_prof_ms, k_records = device_ms(torch, run_k, iters=5, kernel="flash_fwd_kernel")
+        e_ms = event_ms(torch, run_e, iters=3)
+        k_prof_ms, k_records = device_ms(torch, run_k, iters=5, kernel="flash_wgmma_kernel")
         p_ms = event_ms(torch, run_p, iters=3)
-        scale = float(c["dh"]) ** -0.5
-        l_ms, l_diff, l_refused = sdpa_yardstick(torch, q, k, v, scale, got)
         b_ms, b_by, nbytes, flop = attn_bound(c["bh"], c["s"], c["s"], c["dh"], c["dv"], True, 2, PEAK_BF16_FLOPS)
+        floor_ms = b_ms * (c["dh"] + 2 * c["dv"]) / (c["dh"] + c["dv"])  # P V twice: hi and lo
         shapes[name] = {
             "source": c["source"], "bh": c["bh"], "sq": c["s"], "sk": c["s"], "dh": c["dh"], "dv": c["dv"],
             "q_chunk": c["q_chunk"], "k_chunk": c["k_chunk"], "dtype": "bfloat16", "causal": True,
             "max_abs_err": err, "err_over_limit": err_share, "mean_abs_out": mean_abs,
             "ms": k_ms, "profiler_ms": k_prof_ms, "profiler_records": k_records,
+            "earlier_ms": e_ms, "earlier_err_over_limit": e_share, "earlier_max_abs_err": e_err,
             "plain_ms": p_ms, "library_ms": l_ms, "library_refused": l_refused,
-            "library_max_abs_diff": l_diff, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flop": flop,
+            "library_max_abs_diff": l_diff, "library_err_over_limit": l_share,
+            "bound_ms": b_ms, "bound_by": b_by, "floor_ms": floor_ms, "bytes": nbytes, "flop": flop,
             "useful_tflops": flop / k_ms / 1e9,
+            "executed_tflops": flop * (c["dh"] + 2 * c["dv"]) / (c["dh"] + c["dv"]) / k_ms / 1e9,
         }
-    rec = {"phase": "attention", "timing": "CUDA events per call over 5 (kernel), 3 (plain), 10 (library) "
-           "back-to-back calls; profiler_ms: torch.profiler per launch of 5", "launches": launches,
+    rec = {"phase": "attention", "timing": "CUDA events per call over 5 (kernel), 3 (earlier: the CUDA-core "
+           "kernel; plain), 10 (library) back-to-back calls; profiler_ms: torch.profiler per launch of 5",
+           "launches": launches,
            "path_s": path_s, "tolerance": {"rtol": ATTN_FULL_TOL[0], "atol": ATTN_FULL_TOL[1]},
            "shapes": shapes, "smi": smi_sample()}
     emit(rec)
@@ -564,11 +645,14 @@ def attention_row(attn):
         return None if None in vals else sum(vals) / len(vals)
 
     return {
-        "name": "flash_attention", "route": "cuda", "source": KERNELS["flash_attention"][1],
-        "replaces": KERNELS["flash_attention"][2], "launches": attn["launches"],
+        "name": "flash_attention_wgmma", "route": "cuda", "source": KERNELS["flash_attention_wgmma"][1],
+        "replaces": KERNELS["flash_attention_wgmma"][2], "launches": attn["launches"]["flash_attention_wgmma"],
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
         "bound_by": max(shapes, key=lambda sh: sh["bound_ms"])["bound_by"], "library_ms": mean("library_ms"),
+        "floor_ms": mean("floor_ms"), "earlier_ms": mean("earlier_ms"),
+        "earlier": "the CUDA-core kernel (src/repro_torch/csrc/flash_attention.cu, K5's route for bf16 "
+                   "before the tensor-core kernel) on the same inputs in this run",
         "timing": "CUDA events",
         "path": "phase 5: flash_attention's own entry point, one call per full-width shape "
                 "(phases 3-4 never call it); times are per call, the mean over those calls",

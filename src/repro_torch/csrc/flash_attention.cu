@@ -31,9 +31,9 @@
 // read once and o written once: at the qwen3-32b shape (BH 64, S 8192,
 // 128/128, causal) 1.10e12 flop and 537 MB, so operations bound it (1.11 ms
 // at the 989 TFLOP/s bf16 tensor-core peak, 16.4 ms at the 67 TFLOP/s fp32
-// CUDA-core peak this design runs on).  Tensor cores (mma.sync / wgmma), TMA
-// and a pipelined k loop are the next step; this first design is the simple,
-// exact one.
+// CUDA-core peak this design runs on).  bf16 calls whose head widths are
+// multiples of 8 up to 256 run csrc/flash_attention_wgmma.cu on the tensor
+// cores instead; this kernel keeps f32 (held to 2e-5) and the other widths.
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -28,7 +28,7 @@ from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("distance_tile", "dense_tile", "flash_attention")
+SOURCES = ("distance_tile", "dense_tile", "flash_attention", "flash_attention_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,7 +38,7 @@ MAX_TILE = 128  # tile_eval.cuh: kMaxT
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# extern "C" signatures of csrc/*.cu; every function returns cudaGetLastError()
+# extern "C" signatures of csrc/*.cu; every function returns 0 on success
 SIGNATURES = {
     "distance_tile": {
         "distance_tile_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
@@ -50,6 +50,9 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     },
 }
 
@@ -176,3 +179,24 @@ def launch_flash_attention(q, k, v, out, scale, causal) -> None:
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA launch failed with cudaError {err}")
+
+
+def launch_flash_attention_wgmma(q, k, v, out, scale, causal) -> None:
+    """Launch ``flash_attention_wgmma_fwd`` of ``csrc/flash_attention_wgmma.cu``
+    on the current stream; the caller has checked the tensors
+    (``flash_attention.py``).  Raises if the launcher returns non-zero: a
+    refused launch (``cudaGetLastError()``), or a tensor map libcuda would
+    not encode (-1: no encoder; -1000 - CUresult: refused, e.g. data not
+    16-byte aligned)."""
+    bh, sq, dh = q.shape
+    sk, dv = v.shape[1], v.shape[2]
+    fn = function("flash_attention_wgmma", "flash_attention_wgmma_fwd")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bh, sq, sk, dh, dv, scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_wgmma_fwd failed with code {err} "
+                           "(>0: cudaError; -1: no tensor-map encoder; -1000 - n: CUresult n)")

@@ -8,13 +8,23 @@ and ``v (BH, Sk, dv)``, in f32 or bf16 and computed in f32, give
 by query ``row`` only where ``col <= row`` (positional, top-left aligned;
 masked scores are -1e30).  Forward only, as the Pallas kernel is.
 
-``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
-for CUDA tensors and runs ``flash_attention_plain`` -- the Pallas body
-written out over ``(q_chunk, k_chunk)`` chunks in plain PyTorch -- for CPU
-tensors.  There is no fallback between the two: on a CUDA tensor the kernel
-runs or the call raises.  ``q_chunk`` / ``k_chunk`` fix which lengths are
-accepted (``Sq % min(q_chunk, Sq) == 0``, the same for ``Sk``), as in the
-JAX package; the CUDA kernel tiles by its own sizes.
+``flash_attention`` picks its implementation by device, dtype and head
+widths alone (``_route``), never by trying one and falling back:
+
+- CPU tensors run ``flash_attention_plain``, the Pallas body written out
+  over ``(q_chunk, k_chunk)`` chunks in plain PyTorch;
+- CUDA bf16 tensors with ``dh`` and ``dv`` multiples of 8 in 8..256 launch
+  the tensor-core kernel (``csrc/flash_attention_wgmma.cu``: wgmma + TMA,
+  P carried as bf16 hi + lo);
+- every other CUDA call (f32, or bf16 outside those widths) launches the
+  CUDA-core kernel (``csrc/flash_attention.cu``: fp32 FMA), which the JAX
+  tests' f32 tolerance of 2e-5 needs.
+
+On a CUDA tensor the chosen kernel runs or the call raises (the tensor-core
+kernel's TMA maps need 16-byte aligned data: a view that starts between
+16-byte boundaries raises).  ``q_chunk`` / ``k_chunk`` fix which lengths
+are accepted (``Sq % min(q_chunk, Sq) == 0``, the same for ``Sk``), as in
+the JAX package; the CUDA kernels tile by their own sizes.
 """
 from __future__ import annotations
 
@@ -24,10 +34,12 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30   # masked scores (flash_attention.py:27)
 MAX_DV = 256        # csrc/flash_attention.cu: kMaxDV
+WGMMA_MAX_D = 256   # csrc/flash_attention_wgmma.cu: kMaxD
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches made by flash_attention (reset by callers)
-LAUNCHES = {"flash_attention": 0}
+# kernel launches made by flash_attention, one key per CUDA route (reset by callers)
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
+ROUTE_KERNEL = {"cuda_core": "flash_attention", "wgmma": "flash_attention_wgmma"}
 
 
 def _chunks(q, k, v, q_chunk, k_chunk):
@@ -82,15 +94,39 @@ def flash_attention_plain(q, k, v, *, causal=True, q_chunk=512, k_chunk=512, sca
     return out
 
 
+def _route(q, v):
+    """``"plain"`` for a CPU ``q``; else ``"wgmma"`` for bf16 with ``dh`` and
+    ``dv`` multiples of 8 in 8..256 (TMA needs 16-byte rows), else
+    ``"cuda_core"``.  Reads only the device, the dtype and the widths."""
+    if q.device.type == "cpu":
+        return "plain"
+    dh, dv = q.shape[-1], v.shape[-1]
+    if q.dtype == torch.bfloat16 and all(d % 8 == 0 and 8 <= d <= WGMMA_MAX_D for d in (dh, dv)):
+        return "wgmma"
+    return "cuda_core"
+
+
+def _launch(route, q, k, v, causal, scale):
+    """Launch the CUDA kernel of ``route`` on tensors ``flash_attention`` has
+    checked, and count the launch under ``ROUTE_KERNEL[route]``."""
+    out = torch.empty((q.shape[0], q.shape[1], v.shape[2]), dtype=q.dtype, device=q.device)
+    launch = _build.launch_flash_attention_wgmma if route == "wgmma" else _build.launch_flash_attention
+    launch(q, k, v, out, scale, causal)
+    LAUNCHES[ROUTE_KERNEL[route]] += 1
+    return out
+
+
 def flash_attention(q, k, v, *, causal=True, q_chunk=512, k_chunk=512, scale=None):
     """Forward attention (K5): ``(BH, Sq, dh) x (BH, Sk, dh) x (BH, Sk, dv) -> (BH, Sq, dv)``.
 
-    A CUDA ``q`` launches the CUDA kernel (contiguous f32 or bf16 tensors of
-    one type, ``dv <= 256``, any ``dh``); a CPU ``q`` runs the plain version.
-    Raises ``ValueError`` when ``Sq`` or ``Sk`` does not divide its chunk.
+    A CUDA ``q`` launches a CUDA kernel (contiguous f32 or bf16 tensors of
+    one type, ``dv <= 256``, any ``dh``; ``_route`` picks the kernel); a CPU
+    ``q`` runs the plain version.  Raises ``ValueError`` when ``Sq`` or
+    ``Sk`` does not divide its chunk.
     """
     _chunks(q, k, v, q_chunk, k_chunk)
-    if q.device.type == "cpu":
+    route = _route(q, v)
+    if route == "plain":
         return flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
@@ -98,13 +134,9 @@ def flash_attention(q, k, v, *, causal=True, q_chunk=512, k_chunk=512, scale=Non
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16 q, k, v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous q, k, v")
-    bh, sq, dh = q.shape
-    dv = v.shape[2]
+    dh, dv = q.shape[2], v.shape[2]
     if not 1 <= dv <= MAX_DV:
         raise ValueError(f"the CUDA kernel takes value widths 1..{MAX_DV}, got dv={dv}")
     if scale is None:
         scale = float(dh) ** -0.5
-    out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
-    _build.launch_flash_attention(q, k, v, out, scale, causal)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    return _launch(route, q, k, v, causal, scale)

@@ -8,14 +8,24 @@ with a card (no JAX needed, so the shared conftest is skipped):
 Tile inputs are 1/64-quantized, so counts, skipped blocks and masks compare
 with ``==``; the end-to-end test holds the engine on the card against the
 same engine on the CPU.  Flash attention compares within 2e-5 in f32 and
-2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances.
+2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
+and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
+call must count one launch of the kernel its route names (bf16 with head
+widths that are multiples of 8: the tensor-core kernel; the rest: the
+CUDA-core kernel).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ATTN_FULL_TOL  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -107,8 +117,9 @@ def test_engine_on_the_card_equals_the_cpu(cuda, mode):
     assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
 
 
-ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256)]
-ATTN_LENS = [(128, 128), (96, 160), (160, 96)]     # ragged against the kernel's 64-row tiles
+ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
+             (20, 12), (12, 40), (264, 64)]  # not multiples of 8 up to 256: bf16 stays on the CUDA cores
+ATTN_LENS = [(128, 128), (96, 160), (160, 96)]     # ragged against the kernels' 64- and 128-row tiles
 ATTN_CHUNKS = [(32, 32), (16, 32), (512, 512)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -127,10 +138,14 @@ def test_flash_attention_equals_plain_version(cuda, dh, dv, causal, dtype):
         qc, kc = ATTN_CHUNKS[(i + dh) % len(ATTN_CHUNKS)]
         for scale in (None, 0.125):
             q, k, v = _qkv(3, sq, sk, dh, dv, dtype, seed=dh * 31 + dv + i, device=cuda)
-            before = flash_attention.LAUNCHES["flash_attention"]
+            route = flash_attention._route(q, v)
+            wgmma = dtype == torch.bfloat16 and dh % 8 == 0 and dv % 8 == 0 and dh <= 256
+            assert route == ("wgmma" if wgmma else "cuda_core")
+            key = flash_attention.ROUTE_KERNEL[route]
+            before = dict(flash_attention.LAUNCHES)
             got = flash_attention.flash_attention(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc, scale=scale)
             torch.cuda.synchronize()
-            assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+            assert flash_attention.LAUNCHES == {n: c + (n == key) for n, c in before.items()}
             want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc,
                                                          scale=scale)
             assert got.device.type == "cuda" and got.dtype == dtype and got.shape == (3, sq, dv)
@@ -138,9 +153,23 @@ def test_flash_attention_equals_plain_version(cuda, dh, dv, causal, dtype):
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("s,dh,dv", [(1024, 128, 128), (1024, 192, 128), (2048, 64, 64)])
+def test_flash_attention_wgmma_few_key_rows_within_one_bf16_step(cuda, s, dh, dv):
+    # causal: the first rows see a few keys, where p's rounding shows most
+    q, k, v = _qkv(2, s, s, dh, dv, torch.bfloat16, seed=s + dh, device=cuda)
+    before = flash_attention.LAUNCHES["flash_attention_wgmma"]
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert flash_attention.LAUNCHES["flash_attention_wgmma"] == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    g, w = got.float(), want.float()
+    rtol, atol = ATTN_FULL_TOL
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - w).abs() <= rtol * w.abs() + atol).all())
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(2, 64, 64, 32, 32, torch.float32, seed=0, device=cuda)
-    before = flash_attention.LAUNCHES["flash_attention"]
+    before = dict(flash_attention.LAUNCHES)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -152,4 +181,4 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="must divide chunks"):
         flash_attention.flash_attention(q, k, v, q_chunk=48)
-    assert flash_attention.LAUNCHES["flash_attention"] == before
+    assert flash_attention.LAUNCHES == before

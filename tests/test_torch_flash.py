@@ -7,7 +7,16 @@ with ``repro.kernels.flash_attention.flash_attention`` in interpret mode, as
 ``tests/test_flash_kernel.py`` runs it, and with ``repro.kernels.ref``'s
 dense oracle, on the same numpy inputs.  Tolerances are the JAX tests' own:
 2e-5 in f32, 2e-2 in bf16 (one bf16 rounding of the output).
+
+It also checks the choice of kernel (``_route``) and that ``chip_smoke.py``'s
+full-width limit has the power the tensor-core kernel's design rests on:
+an emulation of that kernel's arithmetic passes it with P carried as bf16
+hi + lo and fails it with P rounded to bf16.
 """
+import math
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +26,9 @@ from repro.kernels import flash_attention as ref_flash
 from repro.kernels import ref as ref_ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as port_ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ATTN_FULL_TOL  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -98,9 +110,9 @@ def test_lengths_that_do_not_divide_raise_as_in_jax(sq, sk, qc, kc):
 
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     (q, k, v), _ = _qkv(2, 32, 32, 16, 16, seed=3)
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, q_chunk=16, k_chunk=16)
-    assert fa.LAUNCHES["flash_attention"] == before
+    assert fa.LAUNCHES == before
     assert torch.equal(got, fa.flash_attention_plain(q, k, v, q_chunk=16, k_chunk=16))
 
 
@@ -109,3 +121,68 @@ def test_mismatched_shapes_raise():
     for args in ((q[0], k, v), (q, k[:1], v), (q, k[..., :8], v), (q, k, v[:, :16])):
         with pytest.raises(ValueError, match="3-D|shapes do not match"):
             fa.flash_attention(*args)
+
+
+@pytest.mark.parametrize(
+    "device,dtype,dh,dv,route",
+    [
+        ("cpu", torch.bfloat16, 128, 128, "plain"),
+        ("cpu", torch.float32, 128, 128, "plain"),
+        ("meta", torch.bfloat16, 128, 128, "wgmma"),      # qwen3-32b
+        ("meta", torch.bfloat16, 192, 128, "wgmma"),      # deepseek-v2 MLA
+        ("meta", torch.bfloat16, 8, 256, "wgmma"),        # the domain's edges
+        ("meta", torch.float32, 128, 128, "cuda_core"),   # f32 is held to 2e-5
+        ("meta", torch.bfloat16, 20, 12, "cuda_core"),    # rows not 16-byte multiples
+        ("meta", torch.bfloat16, 128, 36, "cuda_core"),
+        ("meta", torch.bfloat16, 264, 64, "cuda_core"),   # dh above 256
+    ],
+)
+def test_route_reads_device_dtype_and_widths(device, dtype, dh, dv, route):
+    # "meta" stands in for a CUDA device here: _route reads no data
+    q = torch.empty((2, 64, dh), dtype=dtype, device=device)
+    v = torch.empty((2, 64, dv), dtype=dtype, device=device)
+    assert fa._route(q, v) == route
+    if route != "plain":
+        assert fa.ROUTE_KERNEL[route] in fa.LAUNCHES
+
+
+def _emulate_wgmma_kernel(q, k, v, *, p_hi_lo, bk=128):
+    """The tensor-core kernel's arithmetic in plain PyTorch (causal): bf16
+    inputs, f32 sums, an online softmax over ``bk``-key tiles in log2 units
+    (``exp2`` with ``scale * log2(e)`` folded into one multiply), masked
+    scores -1e30, ``l`` summed from the f32 p, and P entering P V as bf16
+    hi + lo (``p_hi_lo``) or rounded to bf16."""
+    bh, sq, dh = q.shape
+    sk, dv = v.shape[1], v.shape[2]
+    scale_log2 = torch.tensor(dh ** -0.5, dtype=torch.float32) * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, sq, 1), fa.NEG_INF)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, dv))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, bk):
+        s = torch.bmm(qf, kf[:, k0:k0 + bk].transpose(1, 2)) * scale_log2
+        s = torch.where(k0 + torch.arange(s.shape[2])[None, :] <= rows, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(2, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(2, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = torch.bmm(hi, vf[:, k0:k0 + bk])
+        if p_hi_lo:
+            pv = pv + torch.bmm((p - hi).bfloat16().float(), vf[:, k0:k0 + bk])
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-37)).to(q.dtype)
+
+
+@pytest.mark.parametrize("p_hi_lo,passes", [(True, True), (False, False)], ids=["p_hi_lo", "p_bf16"])
+def test_full_width_limit_tells_p_hi_lo_from_p_bf16(p_hi_lo, passes):
+    # few-key rows of a causal bf16 head: bf16's 2^-9 relative error on p is
+    # large against a small |o| there; hi + lo carries ~16 bits of p
+    (q, k, v), _ = _qkv(2, 512, 512, 64, 64, "bfloat16", seed=0)
+    want = fa.flash_attention_plain(q, k, v, causal=True).float()
+    got = _emulate_wgmma_kernel(q, k, v, p_hi_lo=p_hi_lo).float()
+    rtol, atol = ATTN_FULL_TOL
+    worst = float(((got - want).abs() / (rtol * want.abs() + atol)).max())
+    assert (worst <= 1.0) == passes, worst
