@@ -13,14 +13,20 @@ Phases, each printing one JSON line:
    tensor-core library (cuobjdump; 0 fails the run);
 2. kernels -- each kernel (K1-K4) against its plain PyTorch version on the
    card: a sweep of tile sizes and dim blocks on 1/64-quantized tiles
-   (counts, skipped and mask must be equal), then the main path's own
-   chunks at full width (equal up to the stated eps-boundary tolerance),
-   with torch.profiler device times of the kernel, the plain version and
-   one PyTorch yardstick, and the bound the card could reach on the same
-   work over the data's real dimensions;
+   (counts, skipped and mask must be equal); K1's own sweep (``K1_CASES``:
+   both epilogues of ``csrc/distance_tile_counts.cu``, per pair and the
+   fused chunk step, against their plain versions and against K1's
+   earlier ``tile_eval.cuh`` kernel, all with ``==``); then the main
+   path's own chunks at full width (equal up to the stated eps-boundary
+   tolerance), with torch.profiler device times of the kernel, the plain
+   version and one PyTorch yardstick, and the bound the card could reach
+   on the same work over the data's real dimensions; K1 beside its
+   earlier kernel on the same chunk, and the fused chunk step beside the
+   composed steps it replaced;
 3. count   -- ``SelfJoinEngine.count`` on Syn16D2M (2,000,000 x 16,
    exponential lambda=40; paper Table 1) at eps=0.03 with the default
-   config, spot-checked against a float64 brute force on the card;
+   config, spot-checked against a float64 brute force on the card; it
+   must launch K1's fused kernel once per chunk and no other kernel;
 4. pairs   -- ``SelfJoinEngine.pairs`` and the dense tier (``self_join``
    with execution="dense", counts and pairs) on CoocTexture (68,040 x 16)
    at eps=0.1;
@@ -41,10 +47,12 @@ Phases, each printing one JSON line:
    against the plain version) and the bound.  Its sweep and its full-width
    part each run right after phase 2's, so a faulty kernel fails the run
    before the long phases;
-6. profile -- a window of Syn16D2M count chunks under torch.profiler: the
-   device's busy share and its top kernels.  It runs before phase 3.
+6. profile -- a window of Syn16D2M count chunks run as the engine runs
+   them, by the host clock, CUDA events and torch.profiler: the device's
+   busy share and its kernels (K1's fused kernel only).  It runs before
+   phase 3.
 
-K1-K4's times are torch.profiler device time per launch, the mean over the
+K1-K4's (and the fused step's) times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
 records than launches, and one after phase 4 none), and every profiler
 session runs before phase 3.  K5's full-width times are CUDA events around
@@ -86,7 +94,7 @@ COOC_EPS = 0.1
 
 KERNELS = {
     # name: (module attribute, CUDA source, TPU kernel replaced, mask mode)
-    "tile_pair_distance": ("distance_tile", "src/repro_torch/csrc/distance_tile.cu",
+    "tile_pair_distance": ("distance_tile", "src/repro_torch/csrc/distance_tile_counts.cu",
                            "src/repro/kernels/distance_tile.py:111", False),
     "tile_pair_distance_mask": ("distance_tile", "src/repro_torch/csrc/distance_tile.cu",
                                 "src/repro/kernels/distance_tile.py:98", True),
@@ -98,6 +106,32 @@ KERNELS = {
                               "src/repro/kernels/flash_attention.py:81", False),
 }
 TILE_KERNELS = [name for name, spec in KERNELS.items() if spec[0] != "flash_attention"]
+# K1's fused chunk step: epilogue (b) of K1's kernel, which also does the work
+# of src/repro/core/engine.py:97 count_chunk_step's scatter
+SCATTER = ("tile_pair_count_scatter", "src/repro_torch/csrc/distance_tile_counts.cu",
+           "src/repro/kernels/distance_tile.py:111")
+K1_KERNEL = "k1_counts_kernel"      # device name of both K1 epilogues (profiler filter)
+TILE_EVAL_KERNEL = "tile_pair_kernel"  # K2-K4 and K1's earlier kernel (tile_eval.cuh)
+
+# phase 2: K1's sweep, (T, n, dim_block, pair order, C, real, shortc).  n <
+# n_pad, n = 1 and n = dim_block + 1; up to 5 dim blocks (SHORTC breaks
+# after the first and the second); T = 1..128; dim blocks and pitches that
+# are not multiples of 4 (4-byte copies, unaligned k loops); pairs sorted by
+# pair_a (runs that start and end inside and on the edges of the CTAs'
+# ranges, at 300 and at 4096 pairs) and unsorted; real < C; shortc off; the
+# T=64 fast path (one dim block of <= 16 dims) at 16, 13 and 10 dims.
+K1_CASES = [
+    (1, 1, 8, "sorted", 300, 263, True), (1, 1, 8, "random", 300, 300, False),
+    (16, 9, 8, "sorted", 300, 300, True), (16, 64, 16, "random", 300, 211, True),
+    (33, 17, 16, "sorted", 300, 299, False), (33, 5, 4, "random", 300, 300, True),
+    (64, 16, 32, "sorted", 4096, 4000, True), (64, 16, 32, "random", 300, 300, True),
+    (64, 40, 8, "sorted", 300, 263, True), (64, 40, 8, "random", 300, 300, False),
+    (64, 3, 3, "sorted", 300, 300, True), (64, 30, 6, "sorted", 300, 250, True),
+    (100, 24, 8, "sorted", 300, 300, True), (100, 33, 32, "random", 300, 280, True),
+    (128, 90, 32, "sorted", 300, 263, True), (128, 1, 4, "random", 300, 300, True),
+    (128, 96, 48, "sorted", 4096, 4096, False),
+    (48, 10, 12, "sorted", 300, 290, True), (64, 13, 16, "random", 300, 300, False),
+]
 
 # phase 5: the sweep (K5 against its plain version) and the full-width shapes
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
@@ -150,7 +184,10 @@ def ptxas_summary(text: str):
             args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
             flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", m.group(1))
             wgmma = re.search(r"flash_wgmma_kernelILi(\d)ELi(\d)E", m.group(1))
-            if args:
+            k1 = re.search(r"k1_counts_kernelILi(\d)ELb(\d)ELi(\d+)E", m.group(1))
+            if k1:
+                name = "k1_counts_kernel<MT=%s,FUSED=%s,KD=%s>" % k1.groups()
+            elif args:
                 name = "tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
             elif flash:
                 name = "flash_fwd_kernel<%s,NV=%s>" % ("f32" if flash.group(1) == "f" else "bf16", flash.group(2))
@@ -285,6 +322,109 @@ def phase_sweep(torch, np, fns):
     return {"cases": cases, "shortc_fired_cases": fired, "shapes": len(shapes)}
 
 
+def k1_case(torch, np, t, n, db, order, c, seed, device="cuda"):
+    """Inputs of one K1 sweep case on ``device``: 1/64-quantized tiles of 12
+    tiles x t rows x n dims padded to n_pad, ragged lengths, ``tile_start``
+    into a grid-sorted space of N = 12 t - 3 rows (the last tile's last rows
+    drop, as the reference's mode="drop"), and c pairs.  Tiles 0 / 1 are
+    far apart in every dim (SHORTC breaks after the first block); tiles 2 /
+    3 agree on the first block and are far apart in the second (a break
+    after the second).  ``order`` "sorted" sorts the pairs by (pair_a,
+    pair_b), as the plan does; "random" leaves them unsorted."""
+    rng = np.random.default_rng(seed)
+    num_tiles = 12
+    n_pad = -(-n // db) * db
+    pts = np.zeros((num_tiles, t, n_pad), np.float32)
+    pts[:, :, :n] = np.round(rng.random((num_tiles, t, n)) * 64) / 64
+    lens = rng.integers(0, t + 1, size=num_tiles).astype(np.int32)
+    lens[:4] = t
+    pts[0, :, :n] = 0.0
+    pts[1, :, :n] = 0.90625
+    pts[3, :, :min(db, n)] = pts[2, :, :min(db, n)]
+    pts[2, :, db:min(2 * db, n)] = 0.0
+    pts[3, :, db:min(2 * db, n)] = 0.90625
+    for i in range(num_tiles):
+        pts[i, lens[i]:] = 0.0
+    pairs = rng.integers(0, num_tiles, size=(c, 2)).astype(np.int32)
+    if order == "sorted":  # runs of one pair_a of every length, some hundreds long
+        pairs[:, 0] = np.sort(rng.choice(num_tiles, size=c, p=np.arange(1, num_tiles + 1) / 78.0))
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    special = np.array([[0, 1], [1, 0], [2, 3], [3, 2], [0, 0]], np.int32)
+    at = rng.choice(c - len(special), size=1)[0]
+    pairs[at:at + len(special)] = special
+    if order == "sorted":
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    starts = (np.arange(num_tiles) * t).astype(np.int32)
+    return dict(
+        tiles=torch.from_numpy(pts).to(device), lens=torch.from_numpy(lens).to(device),
+        starts=torch.from_numpy(starts).to(device), pa=torch.from_numpy(pairs[:, 0].copy()).to(device),
+        pb=torch.from_numpy(pairs[:, 1].copy()).to(device), n=n, n_sorted=num_tiles * t - 3,
+        state=torch.from_numpy(rng.integers(0, 50, size=num_tiles * t - 2).astype(np.int32)).to(device),
+    )
+
+
+def k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps, seed):
+    """One K1 case on the card: epilogue (a) against its plain version and
+    against K1's earlier kernel (tile_eval.cuh), epilogue (b) against its
+    plain version and against the earlier kernel's counts scattered by
+    ``scatter_counts``; all with ``==``.  Returns whether SHORTC broke a
+    pair after its first block, and whether one after a later block."""
+    x = k1_case(torch, np, t, n, db, order, c, seed)
+    args = (x["tiles"], x["lens"], x["pa"], x["pb"])
+    what = f"K1 T={t} n={n} db={db} {order} C={c} real={real} shortc={shortc} eps={eps}"
+    got = distance_tile.tile_pair_distance(*args, eps=eps, dim_block=db, num_dims=n)
+    want = distance_tile.tile_pair_distance_plain(*args, eps=eps, dim_block=db, num_dims=n)
+    earlier = distance_tile.tile_pair_distance_tile_eval(*args, eps=eps, dim_block=db)
+    torch.cuda.synchronize()
+    for g, w, e, part in zip(got, want, earlier, ("counts", "skipped")):
+        check(torch.equal(g, w), f"{what}: {part} of K1 != plain")
+        check(torch.equal(g, e), f"{what}: {part} of K1 != K1's earlier kernel")
+    outs = []
+    for mode in ("fused", "plain", "earlier"):
+        cs, sk = x["state"].clone(), torch.full((), 7, dtype=torch.int32, device=x["tiles"].device)
+        step_args = (cs, sk, x["tiles"], x["lens"], x["starts"], x["pa"], x["pb"], real, eps)
+        if mode == "fused":
+            distance_tile.tile_pair_count_scatter(*step_args, dim_block=db, shortc=shortc, num_dims=n)
+        elif mode == "plain":
+            distance_tile.tile_pair_count_scatter_plain(*step_args, dim_block=db, shortc=shortc, num_dims=n)
+        else:
+            skipped = earlier[1] if shortc else torch.zeros_like(earlier[1])
+            distance_tile.scatter_counts(cs, sk, earlier[0], skipped, x["lens"], x["starts"], x["pa"], real)
+        outs.append((cs, sk))
+    torch.cuda.synchronize()
+    for (cs, sk), other in zip(outs[1:], ("plain", "K1's earlier kernel + scatter_counts")):
+        check(torch.equal(outs[0][0], cs), f"{what}: counts_sorted of the fused step != {other}")
+        check(torch.equal(outs[0][1], sk), f"{what}: skipped_tot of the fused step != {other}")
+    blocks = x["tiles"].shape[2] // db
+    sk = got[1]
+    return bool((sk == blocks - 1).any()) and blocks > 1, bool(((sk > 0) & (sk < blocks - 1)).any())
+
+
+def phase_k1_sweep(torch, np):
+    """K1_CASES at eps 0.3 and 0.05 (the far tiles break there); SHORTC must
+    break after the first block and after a later one somewhere."""
+    from repro_torch.kernels import distance_tile
+
+    cases, after_first, after_later = 0, 0, 0
+    before = dict(distance_tile.LAUNCHES)
+    for i, (t, n, db, order, c, real, shortc) in enumerate(K1_CASES):
+        for eps in (0.3, 0.05):
+            first, later = k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps,
+                                         seed=3000 + i)
+            after_first += first
+            after_later += later
+            cases += 1
+    launched = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
+    check(launched["tile_pair_count_scatter"] == cases and launched["tile_pair_distance"] == cases,
+          f"the K1 sweep launched {launched} for {cases} cases")
+    check(after_first > 0 and after_later > 0,
+          f"SHORTC broke after the first block in {after_first}, after a later one in {after_later} cases")
+    rec = {"phase": "k1_sweep", "cases": cases, "shortc_after_first_block": after_first,
+           "shortc_after_later_block": after_later, "launches": launched}
+    emit(rec)
+    return rec
+
+
 def boundary_band(a, b):
     """float64 d2 between the rows of a (..., Ta, n) and b (..., Tb, n), and
     the band BOUNDARY_REL * (|a|^2 + |b|^2) around eps^2 inside which an fp32
@@ -405,11 +545,14 @@ def phase_real_width(torch, np, fns, inputs):
     """Each kernel on a main-path chunk: compare with plain, time all three."""
     from repro_torch.kernels.distance_tile import eps_squared
 
+    from repro_torch.kernels import distance_tile
+
     rows = {}
     for name, (kern, plain) in fns.items():
         tiles, lens, pa, pb, n, eps, db, source = inputs[name]
-        got = kern(tiles, lens, pa, pb, eps=eps, dim_block=db)
-        want = plain(tiles, lens, pa, pb, eps=eps, dim_block=db)
+        kw = dict(eps=eps, dim_block=db, **({"num_dims": n} if name == "tile_pair_distance" else {}))
+        got = kern(tiles, lens, pa, pb, **kw)
+        want = plain(tiles, lens, pa, pb, **kw)
         torch.cuda.synchronize()
         near = boundary_slack(torch, tiles, lens, pa, pb, eps)
         err = (got[0] - want[0]).abs()
@@ -427,24 +570,112 @@ def phase_real_width(torch, np, fns, inputs):
             check(bool((~m_err | near).all()), f"{name}: mask differs beyond the eps boundary")
             max_err = max(max_err, int(m_err.sum() > 0))
         eps2 = eps_squared(eps)
-        run_k = lambda: kern(tiles, lens, pa, pb, eps=eps, dim_block=db)  # noqa: E731
-        run_p = lambda: plain(tiles, lens, pa, pb, eps=eps, dim_block=db)  # noqa: E731
+        run_k = lambda: kern(tiles, lens, pa, pb, **kw)  # noqa: E731
+        run_p = lambda: plain(tiles, lens, pa, pb, **kw)  # noqa: E731
         run_l = lambda: yardstick(torch, tiles, lens, pa, pb, eps2)  # noqa: E731
-        k_ms, k_records = device_ms(torch, run_k, kernel="tile_pair_kernel")
+        k_ms, k_records = device_ms(torch, run_k, kernel=K1_KERNEL if name == "tile_pair_distance"
+                                    else TILE_EVAL_KERNEL)
         p_ms, _ = device_ms(torch, run_p, iters=5)
         l_ms, _ = device_ms(torch, run_l, iters=5)
         b_ms, b_by, nbytes, flop = bound(torch, tiles, pa, pb, n, db, skipped, mask)
+        extra = {}
+        if name == "tile_pair_distance":  # K1's earlier kernel (tile_eval.cuh) on the same inputs
+            run_e = lambda: distance_tile.tile_pair_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db)  # noqa: E731
+            e_got = run_e()
+            check(torch.equal(e_got[1], got[1]), "K1's earlier kernel: skipped differs from K1")
+            e_ms, _ = device_ms(torch, run_e, kernel=TILE_EVAL_KERNEL)
+            extra = {"earlier_ms": e_ms, "earlier_count_diffs": int((e_got[0] != got[0]).sum()),
+                     "earlier": "K1's tile_eval.cuh kernel (src/repro_torch/csrc/distance_tile.cu, all n_pad "
+                                "dims, one block per pair) on the same inputs in this run"}
         rows[name] = {
             "inputs": source, "pairs": int(pa.shape[0]), "T": int(tiles.shape[1]), "n": n,
             "n_pad": int(tiles.shape[2]), "dim_block": db, "computed_blocks": computed,
             "max_abs_err": max_err, "boundary_lanes": int(near.sum()),
             "ms": k_ms, "profiler_records": k_records, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flop": flop,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flop": flop, **extra,
         }
     emit({"phase": "kernels_real_width", "timing": "torch.profiler device time per launch of 20 "
           "(the kernel: mean over the records kept), per call of 5 (plain, library)",
           "kernels": rows, "smi": smi_sample()})
     return rows
+
+
+def phase_fused_step(torch, tiles, lens, starts, num_points, pa, pb, n, eps, db, shortc, source):
+    """K1's fused chunk step (epilogue b) on a main-path chunk: held exactly
+    against K1's per-pair epilogue scattered by ``scatter_counts``, and
+    against its plain version up to the eps-boundary lanes; timed beside
+    the plain version, the composed steps it replaced (K1's per-pair
+    kernel, and K1's earlier kernel, each + ``scatter_counts``), the
+    yardstick + ``scatter_counts``, and the bound."""
+    from repro_torch.core.engine import count_step
+    from repro_torch.kernels import distance_tile as dt
+
+    real = pa.shape[0]
+
+    def state():
+        return (torch.zeros(num_points + 1, dtype=torch.int32, device="cuda"),
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+
+    def scatter(counts, skipped, st):
+        dt.scatter_counts(*st, counts, skipped if shortc else torch.zeros_like(skipped), lens, starts, pa, real)
+
+    fused, plain, per_pair = state(), state(), state()
+    dt.tile_pair_count_scatter(*fused, tiles, lens, starts, pa, pb, real, eps, dim_block=db, shortc=shortc,
+                               num_dims=n)
+    dt.tile_pair_count_scatter_plain(*plain, tiles, lens, starts, pa, pb, real, eps, dim_block=db,
+                                     shortc=shortc, num_dims=n)
+    scatter(*dt.tile_pair_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n), per_pair)
+    near = state()
+    scatter(boundary_slack(torch, tiles, lens, pa, pb, eps).sum(2, dtype=torch.int32),
+            torch.zeros(real, dtype=torch.int32, device="cuda"), near)
+    torch.cuda.synchronize()
+    check(torch.equal(fused[0], per_pair[0]) and torch.equal(fused[1], per_pair[1]),
+          "fused step != K1's per-pair epilogue + scatter_counts")
+    diff = (fused[0] - plain[0]).abs()
+    check(bool((diff <= near[0]).all()), "fused step: counts_sorted differs from plain beyond the eps boundary")
+    check(torch.equal(fused[1], plain[1]), "fused step: skipped_tot differs from plain")
+
+    st = state()
+    with torch.cuda.device(tiles.device):
+        step = count_step(*st, tiles, lens, starts, eps, dim_block=db, shortc=shortc, backend="pallas",
+                          num_dims=n)
+        run_k = lambda: step(pa, pb, real)  # noqa: E731
+        k_ms, k_records = device_ms(torch, run_k, kernel=K1_KERNEL)
+        k_event_ms = event_ms(torch, run_k, iters=50)
+    run_p = lambda: dt.tile_pair_count_scatter_plain(*st, tiles, lens, starts, pa, pb, real, eps,  # noqa: E731
+                                                     dim_block=db, shortc=shortc, num_dims=n)
+    run_c = lambda: scatter(*dt.tile_pair_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n), st)  # noqa: E731
+    run_e = lambda: scatter(*dt.tile_pair_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db), st)  # noqa: E731
+    eps2 = dt.eps_squared(eps)
+    run_l = lambda: scatter(yardstick(torch, tiles, lens, pa, pb, eps2)[0],  # noqa: E731
+                            torch.zeros(real, dtype=torch.int32, device="cuda"), st)
+    p_ms, _ = device_ms(torch, run_p, iters=5)
+    c_ms, _ = device_ms(torch, run_c)
+    e_ms, _ = device_ms(torch, run_e)
+    e_event_ms = event_ms(torch, run_e, iters=50)
+    l_ms, _ = device_ms(torch, run_l, iters=5)
+    _, skipped = dt.tile_pair_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n)
+    b_ms, b_by, nbytes, flop = bound(torch, tiles, pa, pb, n, db, skipped, False)
+    rows_touched = int(torch.unique(pa).numel()) * tiles.shape[1]
+    # no (P, T) counts or (P,) skipped written: the touched counts_sorted rows read and written
+    nbytes += rows_touched * 4 * 2 - real * (tiles.shape[1] + 1) * 4
+    b_ms = max(nbytes / PEAK_HBM_BYTES * 1e3, flop / PEAK_FP32_FLOPS * 1e3)
+    rec = {
+        "inputs": source, "pairs": real, "T": int(tiles.shape[1]), "n": n, "n_pad": int(tiles.shape[2]),
+        "dim_block": db, "max_abs_err": int(diff.max()), "boundary_lanes": int(near[0].sum()),
+        "ms": k_ms, "profiler_records": k_records, "event_ms": k_event_ms, "plain_ms": p_ms,
+        "composed_ms": c_ms, "earlier_ms": e_ms, "earlier_event_ms": e_event_ms, "library_ms": l_ms,
+        "bound_ms": b_ms, "bound_by": "bytes" if nbytes / PEAK_HBM_BYTES > flop / PEAK_FP32_FLOPS else "operations",
+        "bytes": nbytes, "flop": flop,
+        "composed": "K1's per-pair epilogue + scatter_counts (index_add_ and masks), device time per call",
+        "earlier": "the step this kernel replaced: K1's tile_eval.cuh kernel + scatter_counts, device time "
+                   "per call (earlier_event_ms: CUDA events over 50 back-to-back calls, host included)",
+        "library": "the baddbmm yardstick + scatter_counts",
+    }
+    emit({"phase": "fused_step_real_width", "timing": "torch.profiler device time per launch of 20 (ms), "
+          "per call (composed, earlier: 20; plain, library: 5); event_ms: CUDA events over 50 back-to-back "
+          "bound calls, host time included", **rec, "smi": smi_sample()})
+    return rec
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -741,10 +972,14 @@ def phase_pairs(torch, np, engine, d, dense_cfg, self_join):
 
 def phase_profile(torch, engine, n_chunks=400):
     """Where a count chunk's time goes on the main path: a window of
-    Syn16D2M count chunks, timed bare and then under torch.profiler."""
+    Syn16D2M count chunks run as ``SelfJoinEngine.count`` runs them (one
+    bound step, one span per chunk), timed by the host clock and by CUDA
+    events, then under torch.profiler.  The count step must launch K1's
+    fused kernel and nothing else: no ``index_add_``, no mask kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.engine import count_chunk_step
+    from repro_torch import obs
+    from repro_torch.core.engine import count_step
     from repro_torch.kernels import ops
 
     snap, cfg = engine.snapshot, engine.config
@@ -752,18 +987,26 @@ def phase_profile(torch, engine, n_chunks=400):
     window = chunks[len(chunks) // 2: len(chunks) // 2 + n_chunks]
     counts = torch.zeros(snap.num_points + 1, dtype=torch.int32, device="cuda")
     skipped = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = count_step(counts, skipped, snap.tiles, snap.tile_len, snap.tile_start, cfg.eps,
+                      dim_block=cfg.dim_block, shortc=cfg.shortc,
+                      backend=ops.backend_name("indexed", cfg.use_pallas), num_dims=snap.num_dims)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def run():
-        for pa, pb, real in window:
-            count_chunk_step(counts, skipped, snap.tiles, snap.tile_len, snap.tile_start,
-                             pa, pb, real, cfg.eps, dim_block=cfg.dim_block,
-                             shortc=cfg.shortc, backend=ops.backend_name("indexed", cfg.use_pallas))
+        with torch.cuda.device(snap.device):
+            for pa, pb, real in window:
+                with obs.span("engine.count.chunk", "dispatch"):
+                    step(pa, pb, real)
         torch.cuda.synchronize()
 
     run()
     t0 = time.perf_counter()
+    start.record()
     run()
+    end.record()
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(window)
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / len(window)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     by_name, k1_records = {}, 0
@@ -772,18 +1015,18 @@ def phase_profile(torch, engine, n_chunks=400):
         if us is None:
             us = evt.cuda_time_total
         if us > 0:
-            key = "K1 tile_pair_kernel" if "tile_pair_kernel" in evt.key else evt.key[:60]
+            key = "K1 " + K1_KERNEL if K1_KERNEL in evt.key else evt.key[:60]
             by_name[key] = by_name.get(key, 0.0) + us / len(window) / 1e3
-            if "tile_pair_kernel" in evt.key:
+            if K1_KERNEL in evt.key:
                 k1_records += evt.count
     check(by_name, "torch.profiler recorded no device time in the profile phase")
+    check(list(by_name) == ["K1 " + K1_KERNEL], f"the count step launched other kernels: {sorted(by_name)}")
     device = sum(by_name.values())
     rec = {
         "phase": "profile", "chunks": len(window), "wall_ms_per_chunk": wall_ms,
-        "device_ms_per_chunk": device, "device_busy_share": device / wall_ms if wall_ms else None,
-        "k1_records": k1_records,
-        "top_kernels_ms_per_chunk": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
-        "smi": smi_sample(),
+        "events_ms_per_chunk": events_ms, "device_ms_per_chunk": device,
+        "device_busy_share": device / wall_ms if wall_ms else None, "k1_records": k1_records,
+        "kernels_ms_per_chunk": by_name, "smi": smi_sample(),
     }
     emit(rec)
     return rec
@@ -810,6 +1053,7 @@ def main() -> int:
     phase_device(torch, _build)
     fns = kernel_fns()
     emit({"phase": "kernels_sweep", **phase_sweep(torch, np, fns)})
+    phase_k1_sweep(torch, np)
     phase_attention_sweep(torch, np, flash_attention)
 
     # main-path inputs: build the phase-3 and phase-4 engines (host plans)
@@ -847,6 +1091,9 @@ def main() -> int:
                                      "CoocTexture dense chunk"),
     }
     real = phase_real_width(torch, np, fns, inputs)
+    syn_tiles, syn_lens, syn_pa, syn_pb, syn_n = chunk_of(syn_snap, syn_snap.plan, eng_cfg.count_chunk, syn)
+    fused = phase_fused_step(torch, syn_tiles, syn_lens, syn_snap.tile_start, syn_snap.num_points,
+                             syn_pa, syn_pb, syn_n, SYN_EPS, db, syn_cfg.shortc, "Syn16D2M indexed chunk")
     attn = phase_attention(torch, np, flash_attention)
     phase_profile(torch, syn_engine)  # before the main path: no profiler session after it
 
@@ -854,12 +1101,15 @@ def main() -> int:
     for mod in (distance_tile, dense_tile):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
-    phase_count(torch, np, syn_engine, syn, syn_host_s)
-    k1_after_count = distance_tile.LAUNCHES["tile_pair_distance"]
+    count = phase_count(torch, np, syn_engine, syn, syn_host_s)
+    after_count = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
+    check(after_count == {k: count["chunks"] if k == SCATTER[0] else 0 for k in after_count},
+          f"phase 3 ran {count['chunks']} chunks and launched {after_count}: not the fused K1 once per chunk")
     dense_cfg = dataclasses.replace(cooc_cfg, execution="dense")
     phase_pairs(torch, np, cooc_engine, cooc, dense_cfg, self_join)
     launches = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
-    check(k1_after_count > 0, "phase 3 launched no counts kernel")
+    emit({"phase": "launches", "phase_3": after_count, "phases_3_4": launches})
+    check(launches.pop("tile_pair_distance_tile_eval") == 0, "the main path launched K1's earlier kernel")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
 
@@ -871,6 +1121,14 @@ def main() -> int:
          "library_ms": real[name]["library_ms"], "timing": "torch.profiler"}
         for name in TILE_KERNELS
     ]
+    rows[0].update(earlier_ms=real["tile_pair_distance"]["earlier_ms"], earlier=real["tile_pair_distance"]["earlier"])
+    rows.insert(1, {
+        "name": SCATTER[0], "route": "cuda", "source": SCATTER[1], "replaces": SCATTER[2],
+        "launches": launches[SCATTER[0]], "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
+        "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+        "library_ms": fused["library_ms"], "earlier_ms": fused["earlier_ms"], "earlier": fused["earlier"],
+        "timing": "torch.profiler",
+    })
     rows.append(attention_row(attn))
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ in the paper; everything downstream runs on the snapshot's device:
   tiling       -- ``ops.make_tiles_device``: one gather on the device;
   evaluation   -- the tile kernels (K1/K2 indexed with SHORTC, K3/K4
                   dense), eps a runtime argument;
-  count scatter-- per-point counts accumulate with ``index_add_`` into the
-                  grid-sorted counts vector, in place;
+  count scatter-- per-point counts accumulate into the grid-sorted counts
+                  vector, in place: on the card the indexed tier's K1
+                  scatters them itself (one launch per chunk); the dense
+                  tier and the CPU use ``index_add_``;
   pairs        -- rank-select compaction over the hit mask into a
                   preallocated buffer, in place, with the exact overflow
                   accounting of the JAX package.
@@ -22,7 +24,8 @@ loop reads nothing back from the device until a pass ends.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import contextlib
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from repro_torch.core.types import (
     SelfJoinResult,
     SelfJoinStats,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import distance_tile, ops
 
 _MAX_AUTO_GROW = 8  # doublings before giving up on an auto-sized buffer
 
@@ -47,18 +50,6 @@ _MAX_AUTO_GROW = 8  # doublings before giving up on an auto-sized buffer
 # Device steps.  Where the JAX code returned rebuilt arrays, these update the
 # running state (counts vector, pairs buffer, scalars) in place.
 # ---------------------------------------------------------------------------
-
-
-def _chunk_validity(tile_len, tile_start, pa, real, t):
-    """(pair_valid (C,), row validity (C,T), sorted positions (C,T) int64)."""
-    c = pa.shape[0]
-    dev = pa.device
-    lane = torch.arange(t, device=dev)
-    pal = pa.long()
-    pair_valid = torch.arange(c, device=dev) < real
-    valid = pair_valid[:, None] & (lane[None, :] < tile_len[pal][:, None])
-    idx = tile_start[pal].long()[:, None] + lane[None, :]
-    return pair_valid, valid, idx
 
 
 def count_chunk_step(
@@ -71,22 +62,62 @@ def count_chunk_step(
     real,           # int: valid prefix of the chunk
     eps,            # float search radius
     *,
-    dim_block, shortc, backend,
+    dim_block, shortc, backend, num_dims=None,
 ) -> None:
     """One counts-mode chunk: evaluate + scatter-add, in place.
 
+    The indexed tier (``"pallas"`` / ``"jnp"``) is one call of
+    ``distance_tile.tile_pair_count_scatter`` (on the card one launch that
+    scatters its own counts); the dense tier evaluates with K3 and scatters
+    with ``distance_tile.scatter_counts``, where
     ``counts.at[idx].add(..., mode="drop")`` of the JAX package becomes an
     ``index_add_`` whose invalid lanes land in the sink row ``N``.
     """
+    if backend in ("pallas", "jnp"):
+        distance_tile.tile_pair_count_scatter(
+            counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
+            dim_block=dim_block, shortc=shortc, num_dims=num_dims,
+        )
+        return
     counts, skipped = ops.eval_tile_pairs(
         tiles, tile_len, pa, pb, eps,
         dim_block=dim_block, shortc=shortc, backend=backend,
     )
-    n = counts_sorted.shape[0] - 1
-    pair_valid, valid, idx = _chunk_validity(tile_len, tile_start, pa, real, tiles.shape[1])
-    idx = torch.where(valid, idx, n)
-    counts_sorted.index_add_(0, idx.reshape(-1), torch.where(valid, counts, 0).reshape(-1))
-    skipped_tot += torch.where(pair_valid, skipped, 0).sum(dtype=torch.int32)
+    distance_tile.scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_start, pa, real)
+
+
+def count_step(
+    counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
+    *, dim_block, shortc, backend, num_dims=None,
+) -> Callable[[torch.Tensor, torch.Tensor, int], None]:
+    """``step(pa, pb, real)``: ``count_chunk_step`` bound to one pass's state.
+
+    On the card the indexed tier binds the fused kernel once
+    (``distance_tile.CountScatter``: tables checked, kernel and stream
+    looked up), so a chunk costs one launch and no other host work; the
+    caller keeps the tables' device current.  Every other case calls
+    ``count_chunk_step``.
+    """
+    if count_route(backend, tiles.device) == "fused":
+        return distance_tile.CountScatter(
+            counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
+            dim_block=dim_block, shortc=shortc, num_dims=num_dims,
+        )
+
+    def step(pa, pb, real):
+        count_chunk_step(
+            counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
+            dim_block=dim_block, shortc=shortc, backend=backend, num_dims=num_dims,
+        )
+
+    return step
+
+
+def count_route(backend, device) -> str:
+    """``"fused"`` (the bound K1 launch of ``count_step``) for the indexed
+    tier on the card, else ``"chunk_step"``.  Reads only the backend string
+    and the device."""
+    return "fused" if backend in ("pallas", "jnp") and device.type == "cuda" else "chunk_step"
 
 
 def pairs_chunk_step(
@@ -353,18 +384,19 @@ class SelfJoinEngine:
         dev = snap.device
         counts_sorted = torch.zeros(snap.num_points + 1, dtype=torch.int32, device=dev)
         skipped_tot = torch.zeros((), dtype=torch.int32, device=dev)
+        step = count_step(
+            counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
+            dim_block=cfg.dim_block, shortc=shortc, backend=backend,
+            num_dims=snap.num_dims,
+        )
+        on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with obs.span(
             "engine.count", "join",
             n=snap.num_points, eps=eps, tier=dec.execution,
-        ):
+        ), on_card:
             for pa, pb, real in chunks(eng.count_chunk):
                 with obs.span("engine.count.chunk", "dispatch"):
-                    count_chunk_step(
-                        counts_sorted, skipped_tot,
-                        tiles, tile_len, tile_start,
-                        pa, pb, real, eps,
-                        dim_block=cfg.dim_block, shortc=shortc, backend=backend,
-                    )
+                    step(pa, pb, real)
                 stats.num_chunks += 1
                 stats.num_device_dispatches += 1
             counts = (

@@ -1,8 +1,11 @@
-// K1 / K2: candidate tile-pair evaluation with SHORTC, counts and mask mode.
+// K2 (and K1's earlier kernel): candidate tile-pair evaluation with SHORTC,
+// mask and counts mode.
 //
 // Replaces the TPU kernel src/repro/kernels/distance_tile.py:tile_pair_distance
-// (bodies `_kernel` and `_mask_kernel`).  One thread block per candidate tile
-// pair; the dim-block grid axis of the Pallas kernel becomes a loop inside the
+// (body `_mask_kernel`; and `_kernel` until distance_tile_counts.cu took
+// K1's counts: `distance_tile_counts` below stays to compare the two on the
+// card, and nothing on the main path launches it).  One thread block per
+// candidate tile pair; the dim-block grid axis of the Pallas kernel becomes a loop inside the
 // block that stops early once the block-wide min of d2 over valid lanes
 // exceeds eps^2 (see tile_eval.cuh for the layout and the numerics).
 //

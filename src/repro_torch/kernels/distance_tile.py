@@ -9,11 +9,24 @@ valid lanes exceeds eps^2, and ``skipped`` counts the blocks it never
 computed.  Outputs: ``counts (P, T) int32`` and ``skipped (P,) int32``, plus
 the ``(P, T, T) int8`` hit mask in mask mode.
 
-``tile_pair_distance`` launches the CUDA kernel (``csrc/distance_tile.cu``)
-for CUDA tensors and runs ``tile_pair_distance_plain`` -- the same blocked
-algorithm in plain PyTorch, the twin of ``repro.kernels.ops._eval_jnp`` --
-for CPU tensors.  There is no fallback between the two: on a CUDA tensor the
-kernel runs or the call raises.
+Routes (``_route``, by device and mode only; no fallback between them):
+
+  * CPU tensors                -> ``tile_pair_distance_plain``, the same
+    blocked algorithm in plain PyTorch (the twin of
+    ``repro.kernels.ops._eval_jnp``);
+  * CUDA, counts (K1)          -> ``csrc/distance_tile_counts.cu``, epilogue
+    (a), over the data's real dims only (``num_dims``);
+  * CUDA, mask (K2)            -> ``csrc/distance_tile.cu`` (the templated
+    body ``csrc/tile_eval.cuh``).
+
+``tile_pair_count_scatter`` is the indexed tier's whole count chunk step
+(the counterpart of ``repro.core.engine.count_chunk_step``): on CUDA one
+launch of ``csrc/distance_tile_counts.cu``'s epilogue (b), which scatters
+the counts into the grid-sorted counts vector itself; on the CPU its plain
+version, ``tile_pair_distance_plain`` followed by an ``index_add_``.
+``tile_pair_distance_tile_eval`` launches the counts kernel of the
+``tile_eval.cuh`` body that K1 ran before, for comparing the two on the
+card; nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -24,8 +37,13 @@ from repro_torch.kernels import _build
 
 NEG_LARGE = 3.0e38  # invalid lanes in the SHORTC min (distance_tile.py:34)
 
-# kernel launches made by tile_pair_distance, by kernel (reset by callers)
-LAUNCHES = {"tile_pair_distance": 0, "tile_pair_distance_mask": 0}
+# kernel launches, by kernel (reset by callers): each wrapper counts its own
+LAUNCHES = {
+    "tile_pair_distance": 0,            # K1, csrc/distance_tile_counts.cu, per pair
+    "tile_pair_count_scatter": 0,       # K1, csrc/distance_tile_counts.cu, fused chunk step
+    "tile_pair_distance_mask": 0,       # K2, csrc/distance_tile.cu
+    "tile_pair_distance_tile_eval": 0,  # K1's tile_eval.cuh kernel, csrc/distance_tile.cu
+}
 
 
 def eps_squared(eps) -> float:
@@ -60,15 +78,19 @@ def _fold(d2, a, b):
     return d2 + na[:, :, None] + nb[:, None, :] - 2.0 * prod
 
 
-def blocked_eval(tiles, tile_len, pair_a, pair_b, eps2, *, dim_block, shortc, clamp, return_mask):
+def blocked_eval(tiles, tile_len, pair_a, pair_b, eps2, *, dim_block, shortc, clamp, return_mask,
+                 num_dims=None):
     """Plain PyTorch body shared by the four kernels' plain versions.
 
     ``shortc`` stops a pair once its valid-lane min of d2 exceeds ``eps2``
     (checked after every computed block, the last one included) and counts
     the blocks it skipped; ``clamp`` applies ``max(d2, 0)`` before the eps
-    test.  Returns ``(counts (P,T) int32, skipped (P,) int32[, mask])``.
+    test.  Each block multiplies only dims below ``num_dims`` (default
+    ``n_pad``); the dims past it are the zero padding, so this changes no
+    result.  Returns ``(counts (P,T) int32, skipped (P,) int32[, mask])``.
     """
     t, n_pad = tiles.shape[1], tiles.shape[2]
+    n = n_pad if num_dims is None else num_dims
     p = pair_a.shape[0]
     a, b, valid = _gather(tiles, tile_len, pair_a, pair_b)
     eps2_t = torch.tensor(eps2, dtype=torch.float32, device=tiles.device)
@@ -76,7 +98,8 @@ def blocked_eval(tiles, tile_len, pair_a, pair_b, eps2, *, dim_block, shortc, cl
     done = torch.zeros(p, dtype=torch.bool, device=tiles.device)
     skipped = torch.zeros(p, dtype=torch.int32, device=tiles.device)
     for k0 in range(0, n_pad, dim_block):
-        blk = _fold(d2, a[:, :, k0 : k0 + dim_block], b[:, :, k0 : k0 + dim_block])
+        k1 = max(k0, min(k0 + dim_block, n))
+        blk = _fold(d2, a[:, :, k0:k1], b[:, :, k0:k1])
         if shortc:
             skipped += done.to(torch.int32)
             d2 = torch.where(done[:, None, None], d2, blk)
@@ -93,40 +116,218 @@ def blocked_eval(tiles, tile_len, pair_a, pair_b, eps2, *, dim_block, shortc, cl
     return counts, skipped
 
 
-def tile_pair_distance_plain(tiles, tile_len, pair_a, pair_b, *, eps, dim_block, return_mask=False):
+def tile_pair_distance_plain(tiles, tile_len, pair_a, pair_b, *, eps, dim_block, return_mask=False,
+                             num_dims=None):
     """Plain PyTorch version of K1 (counts) / K2 (``return_mask``)."""
     return blocked_eval(
         tiles, tile_len, pair_a, pair_b, eps_squared(eps),
-        dim_block=dim_block, shortc=True, clamp=False, return_mask=return_mask,
+        dim_block=dim_block, shortc=True, clamp=False, return_mask=return_mask, num_dims=num_dims,
     )
 
 
-def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False):
-    """Evaluate all candidate tile pairs (K1, or K2 with ``return_mask``).
+def _route(device, return_mask):
+    """``"plain"`` for a CPU ``device``; on CUDA ``"tile_eval"`` for the mask
+    (K2, ``csrc/distance_tile.cu``), else ``"counts"`` (K1,
+    ``csrc/distance_tile_counts.cu``).  Reads only the device and the mode."""
+    if device.type == "cpu":
+        return "plain"
+    if device.type != "cuda":
+        raise ValueError(f"tile_pair_distance runs on cpu or cuda tensors, not {device}")
+    return "tile_eval" if return_mask else "counts"
 
-    ``tiles (num_tiles, T, n_pad) f32``, ``tile_len (num_tiles,) int32``,
-    ``pair_a / pair_b (P,) int32``; ``n_pad % dim_block == 0``.  Returns
-    ``(counts (P,T) int32, skipped (P,) int32[, mask (P,T,T) int8])``.  A
-    CUDA ``tiles`` launches the CUDA kernel (T <= 128); a CPU ``tiles`` runs
-    the plain version.
-    """
+
+def _dims(tiles, dim_block, num_dims):
+    """Check ``n_pad % dim_block`` and return ``num_dims`` (default ``n_pad``)."""
     n_pad = tiles.shape[2]
     if n_pad % dim_block:
         raise ValueError(f"n_pad={n_pad} not a multiple of dim_block={dim_block}")
-    if tiles.device.type == "cpu":
+    n = n_pad if num_dims is None else int(num_dims)
+    if not 1 <= n <= n_pad:
+        raise ValueError(f"num_dims must lie in 1..n_pad={n_pad}, got {n}")
+    return n
+
+
+def k1_smem_bytes(t, num_dims) -> int:
+    """Shared memory of one ``distance_tile_counts.cu`` block: the A tile and
+    a two-slot B ring at the row pitch the kernel uses (``tile_pitch``),
+    plus the norms and the SHORTC partial mins."""
+    rs = 16 * (1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8)
+    pitch = -(-num_dims // 4) * 4
+    if (pitch // 4) % 2 == 0:
+        pitch += 4
+    return (3 * rs * pitch + 2 * rs + 8) * 4
+
+
+def _check_k1(tiles, num_dims) -> None:
+    """What the K1 kernel refuses, raised before a launch."""
+    t = tiles.shape[1]
+    if 1 <= t <= _build.MAX_TILE and k1_smem_bytes(t, num_dims) > _build.MAX_SMEM:
+        raise ValueError(
+            f"K1 stages an A tile and two B tiles of T={t} x {num_dims} dims in shared memory: "
+            f"{k1_smem_bytes(t, num_dims)} bytes, above the card's {_build.MAX_SMEM}"
+        )
+
+
+def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False,
+                       num_dims=None):
+    """Evaluate all candidate tile pairs (K1, or K2 with ``return_mask``).
+
+    ``tiles (num_tiles, T, n_pad) f32``, ``tile_len (num_tiles,) int32``,
+    ``pair_a / pair_b (P,) int32``; ``n_pad % dim_block == 0``; ``num_dims``
+    (default ``n_pad``) is the data's dimension count, the dims past it
+    being zero padding.  Returns ``(counts (P,T) int32, skipped (P,) int32[,
+    mask (P,T,T) int8])``.  CUDA ``tiles`` launch a CUDA kernel (T <= 128,
+    see ``_route``); CPU ``tiles`` run the plain version.
+    """
+    n = _dims(tiles, dim_block, num_dims)
+    route = _route(tiles.device, return_mask)
+    if route == "plain":
         return tile_pair_distance_plain(
             tiles, tile_len, pair_a, pair_b,
-            eps=eps, dim_block=dim_block, return_mask=return_mask,
+            eps=eps, dim_block=dim_block, return_mask=return_mask, num_dims=n,
         )
-    if tiles.device.type != "cuda":
-        raise ValueError(f"tile_pair_distance runs on cpu or cuda tensors, not {tiles.device}")
+    if route == "tile_eval":
+        return _launch_tile_eval("distance_tile_mask", "tile_pair_distance_mask",
+                                 tiles, tile_len, pair_a, pair_b, eps, dim_block)
+    _build.check_tile_args(tiles, tile_len, pair_a, pair_b)
+    _check_k1(tiles, n)
+    p, t = pair_a.shape[0], tiles.shape[1]
+    counts = torch.empty((p, t), dtype=torch.int32, device=tiles.device)
+    skipped = torch.empty((p,), dtype=torch.int32, device=tiles.device)
+    fn = _build.function("distance_tile_counts", "distance_tile_pair_counts")
+    with torch.cuda.device(tiles.device):
+        err = fn(tiles.data_ptr(), tile_len.data_ptr(), pair_a.data_ptr(), pair_b.data_ptr(),
+                 p, t, tiles.shape[2], n, dim_block, eps_squared(eps),
+                 counts.data_ptr(), skipped.data_ptr(),
+                 torch.cuda.current_stream(tiles.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"distance_tile_pair_counts: CUDA launch failed with cudaError {err}")
+    LAUNCHES["tile_pair_distance"] += 1
+    return counts, skipped
+
+
+def _launch_tile_eval(symbol, key, tiles, tile_len, pair_a, pair_b, eps, dim_block, mask=True):
     p, t = pair_a.shape[0], tiles.shape[1]
     outs = [torch.empty((p, t), dtype=torch.int32, device=tiles.device),   # counts
             torch.empty((p,), dtype=torch.int32, device=tiles.device)]     # skipped
-    if return_mask:
+    if mask:
         outs.append(torch.empty((p, t, t), dtype=torch.int8, device=tiles.device))
-    symbol = "distance_tile_mask" if return_mask else "distance_tile_counts"
     _build.launch_tile_kernel("distance_tile", symbol, tiles, tile_len, pair_a, pair_b,
                               eps_squared(eps), dim_block, outs)
-    LAUNCHES["tile_pair_distance_mask" if return_mask else "tile_pair_distance"] += 1
+    LAUNCHES[key] += 1
     return tuple(outs)
+
+
+def tile_pair_distance_tile_eval(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32):
+    """K1's counts on CUDA tensors through the ``tile_eval.cuh`` body
+    (``csrc/distance_tile.cu``), all ``n_pad`` dims, one block per pair: the
+    kernel K1 ran before ``csrc/distance_tile_counts.cu``, kept to compare
+    the two on the same inputs.  Returns ``(counts, skipped)``."""
+    _dims(tiles, dim_block, None)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"tile_pair_distance_tile_eval runs on cuda tensors, not {tiles.device}")
+    return _launch_tile_eval("distance_tile_counts", "tile_pair_distance_tile_eval",
+                             tiles, tile_len, pair_a, pair_b, eps, dim_block, mask=False)
+
+
+# ---------------------------------------------------------------------------
+# The indexed count chunk step.
+# ---------------------------------------------------------------------------
+
+
+def scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_start, pa, real):
+    """Add one evaluated chunk into the running state, in place: the count
+    of each valid row ``r < tile_len[pa]`` of each pair ``p < real`` into
+    ``counts_sorted[tile_start[pa] + r]`` (``index_add_``; invalid lanes, and
+    rows at or past ``N``, add 0 to the sink row ``N``), and the valid pairs' ``skipped`` into
+    ``skipped_tot``.  ``counts.at[idx].add(..., mode="drop")`` of the JAX
+    package (``src/repro/core/engine.py:120-126``)."""
+    c, t = counts.shape
+    dev = pa.device
+    n = counts_sorted.shape[0] - 1
+    lane = torch.arange(t, device=dev)
+    pal = pa.long()
+    pair_valid = torch.arange(c, device=dev) < real
+    valid = pair_valid[:, None] & (lane[None, :] < tile_len[pal][:, None])
+    idx = tile_start[pal].long()[:, None] + lane[None, :]
+    valid &= idx < n  # rows past N drop, as mode="drop" does
+    idx = torch.where(valid, idx, n)
+    counts_sorted.index_add_(0, idx.reshape(-1), torch.where(valid, counts, 0).reshape(-1))
+    skipped_tot += torch.where(pair_valid, skipped, 0).sum(dtype=torch.int32)
+
+
+def tile_pair_count_scatter_plain(counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
+                                  *, dim_block, shortc, num_dims=None):
+    """Plain version of the fused step: ``tile_pair_distance_plain``, then
+    ``scatter_counts``.  ``shortc=False`` adds no skipped blocks (the
+    evaluation short-circuits all the same, as in ``ops.eval_tile_pairs``)."""
+    counts, skipped = tile_pair_distance_plain(
+        tiles, tile_len, pa, pb, eps=eps, dim_block=dim_block, num_dims=num_dims)
+    if not shortc:
+        skipped = torch.zeros_like(skipped)
+    scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_start, pa, real)
+
+
+class CountScatter:
+    """The fused chunk step bound to one pass's tables on the card.
+
+    Validates the tables, looks up the kernel and the current stream once;
+    each call ``step(pa, pb, real)`` is one launch of
+    ``distance_tile_count_scatter`` on chunk ``(pa, pb)`` (contiguous int32
+    views, pairs past ``real`` ignored).  The caller keeps ``tiles``'s
+    device current (``torch.cuda.device``) while it calls.
+    """
+
+    __slots__ = ("_fn", "_args", "_tail", "_stream")
+
+    def __init__(self, counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps, *, dim_block, shortc,
+                 num_dims=None):
+        n = _dims(tiles, dim_block, num_dims)
+        if tiles.device.type != "cuda":
+            raise ValueError(f"CountScatter runs on cuda tensors, not {tiles.device}")
+        empty = torch.zeros(0, dtype=torch.int32, device=tiles.device)
+        _build.check_tile_args(tiles, tile_len, empty, empty)
+        _check_k1(tiles, n)
+        for arg, what, shape in ((tile_start, "tile_start", tile_len.shape),
+                                 (skipped_tot, "skipped_tot", None), (counts_sorted, "counts_sorted", None)):
+            if arg.dtype != torch.int32 or arg.device != tiles.device or not arg.is_contiguous():
+                raise ValueError(f"{what} must be a contiguous int32 tensor on {tiles.device}")
+            if shape is not None and arg.shape != shape:
+                raise ValueError(f"{what} must match tile_len, got {tuple(arg.shape)}")
+        if skipped_tot.numel() != 1 or counts_sorted.dim() != 1 or counts_sorted.shape[0] < 1:
+            raise ValueError("skipped_tot must hold one value and counts_sorted be (N + 1,)")
+        self._fn = _build.function("distance_tile_counts", "distance_tile_count_scatter")
+        self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr())
+        self._tail = (tiles.shape[1], tiles.shape[2], n, dim_block, eps_squared(eps),
+                      counts_sorted.data_ptr(), counts_sorted.shape[0] - 1, skipped_tot.data_ptr(),
+                      int(bool(shortc)))
+        self._stream = torch.cuda.current_stream(tiles.device).cuda_stream
+
+    def __call__(self, pa, pb, real) -> None:
+        if real <= 0:
+            return
+        err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
+        if err != 0:
+            raise RuntimeError(f"distance_tile_count_scatter: CUDA launch failed with cudaError {err}")
+        LAUNCHES["tile_pair_count_scatter"] += 1
+
+
+def tile_pair_count_scatter(counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
+                            *, dim_block, shortc, num_dims=None):
+    """One indexed count chunk, in place (K1 + the count scatter).
+
+    ``counts_sorted (N + 1,) int32`` (row ``N`` a sink), ``skipped_tot ()
+    int32``, the tile tables, a padded chunk ``pa, pb (C,) int32`` of which
+    the first ``real`` pairs count.  On CUDA one launch of the fused kernel;
+    on the CPU ``tile_pair_count_scatter_plain``.
+    """
+    if _route(tiles.device, False) == "plain":
+        return tile_pair_count_scatter_plain(
+            counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
+            dim_block=dim_block, shortc=shortc, num_dims=num_dims)
+    _build.check_tile_args(tiles, tile_len, pa, pb)
+    if not 0 <= real <= pa.shape[0]:
+        raise ValueError(f"real={real} outside 0..{pa.shape[0]}")
+    with torch.cuda.device(tiles.device):
+        CountScatter(counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
+                     dim_block=dim_block, shortc=shortc, num_dims=num_dims)(pa, pb, real)

@@ -6,8 +6,11 @@ with a card (no JAX needed, so the shared conftest is skipped):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tile inputs are 1/64-quantized, so counts, skipped blocks and masks compare
-with ``==``; the end-to-end test holds the engine on the card against the
-same engine on the CPU.  Flash attention compares within 2e-5 in f32 and
+with ``==``; K1's two epilogues (per pair, and the fused chunk step) are
+also held against K1's earlier ``tile_eval.cuh`` kernel over
+``chip_smoke.K1_CASES``; the end-to-end tests hold the engine on the card
+against the same engine on the CPU, and check that its count step
+launches K1's fused kernel once per chunk and nothing else.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -25,7 +28,7 @@ from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ATTN_FULL_TOL  # noqa: E402
+from chip_smoke import ATTN_FULL_TOL, K1_CASES, k1_sweep_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +118,46 @@ def test_engine_on_the_card_equals_the_cpu(cuda, mode):
     got_p = card.pairs().pairs
     want_p = host.pairs().pairs
     assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
+
+
+@pytest.mark.parametrize("eps", [0.3, 0.05])
+@pytest.mark.parametrize("case", range(len(K1_CASES)))
+def test_k1_epilogues_equal_plain_and_earlier_kernel(cuda, case, eps):
+    t, n, db, order, c, real, shortc = K1_CASES[case]
+    before = dict(distance_tile.LAUNCHES)
+    k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps, seed=3000 + case)
+    grew = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
+    assert grew == {"tile_pair_distance": 1, "tile_pair_count_scatter": 1, "tile_pair_distance_mask": 0,
+                    "tile_pair_distance_tile_eval": 1}
+
+
+def _launches():
+    return {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
+
+
+@pytest.mark.parametrize("n,dim_block,eps", [(16, 32, 0.15), (20, 8, 0.15)])
+def test_engine_count_launches_the_fused_kernel_once_per_chunk(cuda, n, dim_block, eps):
+    """16 dims in one block (K1's fast path), and 20 dims over three blocks
+    of 8 (n_pad 24) on clustered data where SHORTC skips blocks."""
+    rng = np.random.default_rng(n)
+    centers = rng.random((20, n))
+    d = centers[rng.integers(0, 20, 3000)] + rng.normal(0, 0.03, (3000, n))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, dim_block=dim_block, execution="indexed")
+    eng = EngineConfig(count_chunk=256)
+    card = SelfJoinEngine(d, cfg, eng, device=cuda)
+    host = SelfJoinEngine(d, cfg, eng, device="cpu")
+    before = _launches()
+    got = card.count()
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    assert grew == {k: got.stats.num_chunks if k == "tile_pair_count_scatter" else 0 for k in grew}
+    want = host.count()
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.stats == want.stats
+    assert got.stats.num_chunks > 1
+    if dim_block == 8:
+        assert got.stats.dim_blocks_skipped > 0
 
 
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
