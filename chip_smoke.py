@@ -16,7 +16,10 @@ Phases, each printing one JSON line:
    (counts, skipped and mask must be equal); K1's own sweep (``K1_CASES``:
    both epilogues of ``csrc/distance_tile_counts.cu``, per pair and the
    fused chunk step, against their plain versions and against K1's
-   earlier ``tile_eval.cuh`` kernel, all with ``==``); then the main
+   earlier ``tile_eval.cuh`` kernel, all with ``==``, each on the full
+   grid, on one CTA and on a grid whose CTA ranges end on run changes of
+   pair_a; and K1 at T=64 x 384 dims, staged in slices, timed beside the
+   earlier kernel); then the main
    path's own chunks at full width (equal up to the stated eps-boundary
    tolerance), with torch.profiler device times of the kernel, the plain
    version and one PyTorch yardstick, and the bound the card could reach
@@ -114,23 +117,33 @@ K1_KERNEL = "k1_counts_kernel"      # device name of both K1 epilogues (profiler
 TILE_EVAL_KERNEL = "tile_pair_kernel"  # K2-K4 and K1's earlier kernel (tile_eval.cuh)
 
 # phase 2: K1's sweep, (T, n, dim_block, pair order, C, real, shortc).  n <
-# n_pad, n = 1 and n = dim_block + 1; up to 5 dim blocks (SHORTC breaks
-# after the first and the second); T = 1..128; dim blocks and pitches that
-# are not multiples of 4 (4-byte copies, unaligned k loops); pairs sorted by
-# pair_a (runs that start and end inside and on the edges of the CTAs'
-# ranges, at 300 and at 4096 pairs) and unsorted; real < C; shortc off; the
-# T=64 fast path (one dim block of <= 16 dims) at 16, 13 and 10 dims.
+# n_pad, n = 1 and n = dim_block + 1; up to 12 dim blocks (SHORTC breaks
+# after the first and the second); T = 1..128, every thread-tile size (T up
+# to 16, 32, 64, 128); dim blocks and pitches that are not multiples of 4
+# (4-byte copies, unaligned k loops); rows too wide to stage whole (T=64
+# past 300 dims, T=128 past 148, T=16 past 1204: staged in 32-dim slices,
+# with dim blocks that do and do not align to them); pairs sorted by pair_a
+# and unsorted; 12,000-16,000 sorted pairs, many per CTA at the full grid;
+# real < C; shortc off; the T=64 fast path (one dim block of <= 16 dims) at
+# 16, 13 and 10 dims.  Every case also runs on a capped grid (``k1_grids``),
+# where run changes of pair_a fall inside CTAs' ranges and on their edges.
 K1_CASES = [
     (1, 1, 8, "sorted", 300, 263, True), (1, 1, 8, "random", 300, 300, False),
     (16, 9, 8, "sorted", 300, 300, True), (16, 64, 16, "random", 300, 211, True),
+    (16, 12, 4, "sorted", 16000, 15990, True),
+    (24, 20, 8, "sorted", 12000, 11900, True), (32, 7, 8, "random", 300, 300, True),
     (33, 17, 16, "sorted", 300, 299, False), (33, 5, 4, "random", 300, 300, True),
     (64, 16, 32, "sorted", 4096, 4000, True), (64, 16, 32, "random", 300, 300, True),
     (64, 40, 8, "sorted", 300, 263, True), (64, 40, 8, "random", 300, 300, False),
+    (64, 40, 8, "sorted", 12000, 11000, True), (48, 5, 3, "sorted", 12000, 12000, False),
     (64, 3, 3, "sorted", 300, 300, True), (64, 30, 6, "sorted", 300, 250, True),
     (100, 24, 8, "sorted", 300, 300, True), (100, 33, 32, "random", 300, 280, True),
     (128, 90, 32, "sorted", 300, 263, True), (128, 1, 4, "random", 300, 300, True),
     (128, 96, 48, "sorted", 4096, 4096, False),
     (48, 10, 12, "sorted", 300, 290, True), (64, 13, 16, "random", 300, 300, False),
+    (64, 384, 32, "sorted", 300, 290, True), (128, 200, 40, "random", 300, 300, True),
+    (100, 150, 50, "sorted", 2000, 1900, True), (16, 1210, 121, "sorted", 300, 300, True),
+    (24, 700, 350, "random", 300, 280, False),
 ]
 
 # phase 5: the sweep (K5 against its plain version) and the full-width shapes
@@ -363,41 +376,75 @@ def k1_case(torch, np, t, n, db, order, c, seed, device="cuda"):
     )
 
 
+def run_edges(pa, num_pairs, grid):
+    """Where the changes of ``pa`` fall against the ranges of ``grid`` CTAs
+    over ``num_pairs`` pairs (CTA b takes [P b / G, P (b + 1) / G)): changes
+    inside a range, changes on a range's edge, and runs across an edge."""
+    edges = {num_pairs * b // grid for b in range(1, grid)} - {0, num_pairs}
+    changes = {p for p in range(1, num_pairs) if pa[p] != pa[p - 1]}
+    return {"change_inside": len(changes - edges), "change_on_edge": len(changes & edges),
+            "run_across_edge": len(edges - changes)}
+
+
+def k1_grids(pa, num_pairs):
+    """The grids each K1 sweep case runs on: the card's full grid (0), one
+    CTA for all pairs, and the smallest grid of 3 or more CTAs on which a
+    run change of ``pa`` falls on a range's edge and a run crosses another."""
+    for g in range(3, min(num_pairs, 64) + 1):
+        e = run_edges(pa, num_pairs, g)
+        if e["change_on_edge"] and e["run_across_edge"]:
+            return 0, 1, g
+    return 0, 1, 7
+
+
 def k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps, seed):
-    """One K1 case on the card: epilogue (a) against its plain version and
-    against K1's earlier kernel (tile_eval.cuh), epilogue (b) against its
-    plain version and against the earlier kernel's counts scattered by
-    ``scatter_counts``; all with ``==``.  Returns whether SHORTC broke a
-    pair after its first block, and whether one after a later block."""
+    """One K1 case on the card, on each of ``k1_grids``: epilogue (a)
+    against its plain version and against K1's earlier kernel
+    (tile_eval.cuh), epilogue (b) (bound as ``CountScatter``, as the engine
+    binds it) against its plain version and against the earlier kernel's
+    counts scattered by ``scatter_counts``; all with ``==``.  Returns
+    whether SHORTC broke a pair after its first block, whether one after a
+    later block, and the capped grids' ``run_edges`` summed."""
     x = k1_case(torch, np, t, n, db, order, c, seed)
     args = (x["tiles"], x["lens"], x["pa"], x["pb"])
     what = f"K1 T={t} n={n} db={db} {order} C={c} real={real} shortc={shortc} eps={eps}"
-    got = distance_tile.tile_pair_distance(*args, eps=eps, dim_block=db, num_dims=n)
     want = distance_tile.tile_pair_distance_plain(*args, eps=eps, dim_block=db, num_dims=n)
     earlier = distance_tile.tile_pair_distance_tile_eval(*args, eps=eps, dim_block=db)
-    torch.cuda.synchronize()
-    for g, w, e, part in zip(got, want, earlier, ("counts", "skipped")):
-        check(torch.equal(g, w), f"{what}: {part} of K1 != plain")
-        check(torch.equal(g, e), f"{what}: {part} of K1 != K1's earlier kernel")
-    outs = []
-    for mode in ("fused", "plain", "earlier"):
+    ref = []
+    for mode in ("plain", "earlier"):
         cs, sk = x["state"].clone(), torch.full((), 7, dtype=torch.int32, device=x["tiles"].device)
-        step_args = (cs, sk, x["tiles"], x["lens"], x["starts"], x["pa"], x["pb"], real, eps)
-        if mode == "fused":
-            distance_tile.tile_pair_count_scatter(*step_args, dim_block=db, shortc=shortc, num_dims=n)
-        elif mode == "plain":
-            distance_tile.tile_pair_count_scatter_plain(*step_args, dim_block=db, shortc=shortc, num_dims=n)
+        if mode == "plain":
+            distance_tile.tile_pair_count_scatter_plain(cs, sk, x["tiles"], x["lens"], x["starts"], x["pa"],
+                                                        x["pb"], real, eps, dim_block=db, shortc=shortc,
+                                                        num_dims=n)
         else:
             skipped = earlier[1] if shortc else torch.zeros_like(earlier[1])
             distance_tile.scatter_counts(cs, sk, earlier[0], skipped, x["lens"], x["starts"], x["pa"], real)
-        outs.append((cs, sk))
-    torch.cuda.synchronize()
-    for (cs, sk), other in zip(outs[1:], ("plain", "K1's earlier kernel + scatter_counts")):
-        check(torch.equal(outs[0][0], cs), f"{what}: counts_sorted of the fused step != {other}")
-        check(torch.equal(outs[0][1], sk), f"{what}: skipped_tot of the fused step != {other}")
+        ref.append((mode if mode == "plain" else "K1's earlier kernel + scatter_counts", cs, sk))
+    pa = x["pa"].cpu().numpy()
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    for grid in k1_grids(pa[:real], real):
+        on = f"{what} grid={grid or 'full'}"
+        got = distance_tile.tile_pair_distance(*args, eps=eps, dim_block=db, num_dims=n, max_ctas=grid)
+        cs, sk = x["state"].clone(), torch.full((), 7, dtype=torch.int32, device=x["tiles"].device)
+        step = distance_tile.CountScatter(cs, sk, x["tiles"], x["lens"], x["starts"], eps, dim_block=db,
+                                          shortc=shortc, num_dims=n, max_ctas=grid)
+        step(x["pa"], x["pb"], real)
+        torch.cuda.synchronize()
+        for g, w, e, part in zip(got, want, earlier, ("counts", "skipped")):
+            check(torch.equal(g, w), f"{on}: {part} of K1 != plain")
+            check(torch.equal(g, e), f"{on}: {part} of K1 != K1's earlier kernel")
+        for other, want_cs, want_sk in ref:
+            check(torch.equal(cs, want_cs), f"{on}: counts_sorted of the fused step != {other}")
+            check(torch.equal(sk, want_sk), f"{on}: skipped_tot of the fused step != {other}")
+        if grid:
+            for num, p in ((c, pa), (real, pa[:real])):
+                for k, v in run_edges(p, num, min(grid, num)).items():
+                    edges[k] += v
     blocks = x["tiles"].shape[2] // db
-    sk = got[1]
-    return bool((sk == blocks - 1).any()) and blocks > 1, bool(((sk > 0) & (sk < blocks - 1)).any())
+    sk = want[1]
+    return (bool((sk == blocks - 1).any()) and blocks > 1, bool(((sk > 0) & (sk < blocks - 1)).any()),
+            edges)
 
 
 def phase_k1_sweep(torch, np):
@@ -406,21 +453,39 @@ def phase_k1_sweep(torch, np):
     from repro_torch.kernels import distance_tile
 
     cases, after_first, after_later = 0, 0, 0
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    staging = set()
     before = dict(distance_tile.LAUNCHES)
     for i, (t, n, db, order, c, real, shortc) in enumerate(K1_CASES):
+        staging.add((distance_tile.k1_staging(t, n), 1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8))
         for eps in (0.3, 0.05):
-            first, later = k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps,
-                                         seed=3000 + i)
+            first, later, e = k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps,
+                                            seed=3000 + i)
             after_first += first
             after_later += later
+            for k, v in e.items():
+                edges[k] += v
             cases += 1
     launched = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
-    check(launched["tile_pair_count_scatter"] == cases and launched["tile_pair_distance"] == cases,
-          f"the K1 sweep launched {launched} for {cases} cases")
+    grids = 3  # k1_grids: the full grid, one CTA, one capped grid
+    check(launched["tile_pair_count_scatter"] == grids * cases and launched["tile_pair_distance"] == grids * cases,
+          f"the K1 sweep launched {launched} for {cases} cases on {grids} grids each")
     check(after_first > 0 and after_later > 0,
           f"SHORTC broke after the first block in {after_first}, after a later one in {after_later} cases")
+    check(all(edges.values()), f"the capped grids put pair_a's run changes at {edges}")
+    check({s for s, _ in staging} == {0, distance_tile.K1_SLAB} and {mt for s, mt in staging if s} == {1, 2, 4, 8},
+          f"the K1 sweep staged (slab, MT) {sorted(staging)}")
+    # rows too wide to stage whole, T=64 x 384 dims in 12 blocks: the sliced
+    # path beside K1's earlier kernel (CUDA events, 20 calls each)
+    x = k1_case(torch, np, 64, 384, 32, "sorted", 4096, seed=7)
+    args = (x["tiles"], x["lens"], x["pa"], x["pb"])
+    wide = {"T": 64, "n": 384, "dim_block": 32, "pairs": 4096, "eps": 0.3,
+            "slab": distance_tile.k1_staging(64, 384),
+            "ms": event_ms(torch, lambda: distance_tile.tile_pair_distance(*args, eps=0.3, num_dims=384), 20),
+            "earlier_ms": event_ms(torch, lambda: distance_tile.tile_pair_distance_tile_eval(*args, eps=0.3), 20)}
     rec = {"phase": "k1_sweep", "cases": cases, "shortc_after_first_block": after_first,
-           "shortc_after_later_block": after_later, "launches": launched}
+           "shortc_after_later_block": after_later, "run_edges": edges,
+           "staging_slab_mt": sorted(staging), "launches": launched, "wide_rows": wide}
     emit(rec)
     return rec
 
@@ -620,8 +685,7 @@ def phase_fused_step(torch, tiles, lens, starts, num_points, pa, pb, n, eps, db,
         dt.scatter_counts(*st, counts, skipped if shortc else torch.zeros_like(skipped), lens, starts, pa, real)
 
     fused, plain, per_pair = state(), state(), state()
-    dt.tile_pair_count_scatter(*fused, tiles, lens, starts, pa, pb, real, eps, dim_block=db, shortc=shortc,
-                               num_dims=n)
+    dt.CountScatter(*fused, tiles, lens, starts, eps, dim_block=db, shortc=shortc, num_dims=n)(pa, pb, real)
     dt.tile_pair_count_scatter_plain(*plain, tiles, lens, starts, pa, pb, real, eps, dim_block=db,
                                      shortc=shortc, num_dims=n)
     scatter(*dt.tile_pair_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n), per_pair)

@@ -90,15 +90,16 @@ def count_step(
     counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
     *, dim_block, shortc, backend, num_dims=None,
 ) -> Callable[[torch.Tensor, torch.Tensor, int], None]:
-    """``step(pa, pb, real)``: ``count_chunk_step`` bound to one pass's state.
+    """``step(pa, pb, real)``: the count chunk step bound to one pass's
+    state, the engine's one entry to it.
 
     On the card the indexed tier binds the fused kernel once
-    (``distance_tile.CountScatter``: tables checked, kernel and stream
+    (a ``distance_tile.CountScatter``: tables checked, kernel and stream
     looked up), so a chunk costs one launch and no other host work; the
-    caller keeps the tables' device current.  Every other case calls
-    ``count_chunk_step``.
+    caller keeps the tables' device current.  The dense tier and the CPU
+    call ``count_chunk_step``.  Reads only the backend and the device.
     """
-    if count_route(backend, tiles.device) == "fused":
+    if backend in ("pallas", "jnp") and tiles.device.type == "cuda":
         return distance_tile.CountScatter(
             counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
             dim_block=dim_block, shortc=shortc, num_dims=num_dims,
@@ -111,13 +112,6 @@ def count_step(
         )
 
     return step
-
-
-def count_route(backend, device) -> str:
-    """``"fused"`` (the bound K1 launch of ``count_step``) for the indexed
-    tier on the card, else ``"chunk_step"``.  Reads only the backend string
-    and the device."""
-    return "fused" if backend in ("pallas", "jnp") and device.type == "cuda" else "chunk_step"
 
 
 def pairs_chunk_step(

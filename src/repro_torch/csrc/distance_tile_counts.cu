@@ -16,14 +16,21 @@
 //     num_dims)); the zero padding up to n_pad is neither staged nor
 //     multiplied (fmaf(0, 0, x) == x, so this is exact).  Block count, fold
 //     points, SHORTC checks and `skipped` are the reference's.
-//   * persistent CTAs (a grid of the SMs times the CTAs one SM holds), each
-//     walking a contiguous range of the pair list (CTA b of G takes
-//     [P b / G, P (b + 1) / G)).  The plan sorts pairs by (pair_a, pair_b),
-//     so a range holds few distinct A tiles: A is staged once per run of
-//     equal pair_a, in shared memory, and B tiles stream through a
-//     double-buffered shared-memory ring filled by cp.async (16-byte copies
-//     where rows allow, 4-byte otherwise), the next pair's B in flight while
-//     this pair computes.
+//   * persistent CTAs (a grid of the SMs times the CTAs one SM holds, or
+//     fewer where the caller caps it), each walking a contiguous range of the
+//     pair list (CTA b of G takes [P b / G, P (b + 1) / G)).  The plan sorts
+//     pairs by (pair_a, pair_b), so a range holds few distinct A tiles: A is
+//     staged once per run of equal pair_a, in shared memory, and B tiles
+//     stream through a double-buffered shared-memory ring filled by cp.async
+//     (16-byte copies where rows allow, 4-byte otherwise), the next pair's B
+//     in flight while this pair computes.
+//   * rows too wide for that (an A tile and two B tiles of T x num_dims
+//     floats above the 227 KB of a block: at T = 64 past 300 dims, at T = 128
+//     past 148) are staged in slices instead: per pair and dim block, A and B
+//     pass through shared memory kSlab dims at a time, without the ring or a
+//     resident A, one CTA per pair.  Slices lie on a grid of kSlab dims, so
+//     their 16-byte alignment is the whole row's, and the fmaf chains run
+//     over the same k in the same order: the result is the same bit for bit.
 //   * 256 threads as a 16 x 16 grid; thread (ty, tx) owns the MT x MT d2
 //     elements (ty + 16 i, tx + 16 j).  Tiles sit row-major in shared memory
 //     with a pitch of 4 (odd) floats, so the 16-byte reads along k of 8
@@ -55,6 +62,7 @@ constexpr int kSide = 16;              // thread grid is kSide x kSide
 constexpr int kMaxT = 128;
 constexpr float kNegLarge = 3.0e38f;   // invalid lanes in the SHORTC min (distance_tile.py:34)
 constexpr size_t kMaxSmem = 232448;    // a block's shared memory on sm_90
+constexpr int kSlab = 32;              // dims per slice where whole rows do not fit
 
 struct Args {
   const float* tiles;     // (num_tiles, t, n_pad)
@@ -63,6 +71,8 @@ struct Args {
   const int* pair_b;      // (P,)
   int num_pairs;          // pairs evaluated: P (a) or real (b)
   int t, n_pad, num_dims, dim_block, pitch, vec_copy;
+  int slab;               // 0: whole rows staged; else dims per staged slice
+  int max_ctas;           // 0: the card's full persistent grid; else its cap
   float eps2;
   int* counts;            // (a): (P, t)
   int* skipped;           // (a): (P,)
@@ -87,11 +97,13 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// Rows [0, t) and dims [0, num_dims) of one tile into dst (row pitch `pitch`).
-// KD > 0 (the fast path): rows of KD / 4 16-byte chunks, of which the first
-// ceil(num_dims / 4) are copied (the rest stay zero).
+// Rows [0, t), dims [k_lo, k_hi) of one tile into dst, dim k at column
+// k - base (row pitch `pitch`; base % 4 == 0).  KD > 0 (the fast path): rows
+// of KD / 4 16-byte chunks, of which the first ceil(num_dims / 4) are copied
+// (the rest stay zero).
 template <int KD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, const Args& a, int pitch) {
+__device__ __forceinline__ void load_dims(float* dst, const float* src, const Args& a, int pitch, int k_lo,
+                                          int k_hi, int base) {
   if (KD > 0) {
     constexpr int kChunks = KD / 4;
     const int chunks = (a.num_dims + 3) >> 2;
@@ -100,27 +112,34 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, const Ar
       const int c = idx % kChunks;
       if (c < chunks) cp_async16(dst + r * pitch + 4 * c, src + (size_t)r * a.n_pad + 4 * c);
     }
-  } else if (a.vec_copy) {  // n_pad % 4 == 0: 16-byte chunks; the last may carry padding dims
-    const int chunks = (a.num_dims + 3) >> 2;
+  } else if (a.vec_copy) {  // n_pad % 4 == 0, k_lo % 4 == 0: 16-byte chunks; the last may run past k_hi
+    const int c0 = k_lo >> 2;
+    const int chunks = ((k_hi + 3) >> 2) - c0;
     for (int idx = threadIdx.x; idx < a.t * chunks; idx += kThreads) {
       const int r = idx / chunks;
-      const int c = idx - r * chunks;
-      cp_async16(dst + r * pitch + 4 * c, src + (size_t)r * a.n_pad + 4 * c);
+      const int k = 4 * (c0 + idx - r * chunks);
+      cp_async16(dst + r * pitch + k - base, src + (size_t)r * a.n_pad + k);
     }
   } else {
-    for (int idx = threadIdx.x; idx < a.t * a.num_dims; idx += kThreads) {
-      const int r = idx / a.num_dims;
-      const int k = idx - r * a.num_dims;
-      cp_async4(dst + r * pitch + k, src + (size_t)r * a.n_pad + k);
+    const int w = k_hi - k_lo;
+    for (int idx = threadIdx.x; idx < a.t * w; idx += kThreads) {
+      const int r = idx / w;
+      const int k = k_lo + idx - r * w;
+      cp_async4(dst + r * pitch + k - base, src + (size_t)r * a.n_pad + k);
     }
   }
   cp_async_commit();
 }
 
-// sum_k row[k]^2 over [k0, k1), one fmaf chain in k order (KD > 0: [0, KD))
+// One whole tile: dims [0, num_dims).
 template <int KD>
-__device__ __forceinline__ float row_norm(const float* row, int k0, int k1) {
-  float s = 0.f;
+__device__ __forceinline__ void load_tile(float* dst, const float* src, const Args& a, int pitch) {
+  load_dims<KD>(dst, src, a, pitch, 0, a.num_dims, 0);
+}
+
+// s + sum_k row[k]^2 over [k0, k1), one fmaf chain in k order (KD > 0: [0, KD))
+template <int KD>
+__device__ __forceinline__ float row_norm(const float* row, int k0, int k1, float s) {
   if (KD > 0) {
 #pragma unroll
     for (int k = 0; k < KD; k += 4) {
@@ -223,7 +242,8 @@ __device__ __forceinline__ void flush_run(int (&cnt)[MT], int ta, int la, const 
   }
 }
 
-// KD = 0: any shape.  KD = 16, the fast path (MT = 4, i.e. 32 < T <= 64):
+// KD = 0: any shape (a.slab > 0: staged in slices).  KD = 16, the fast
+// path (MT = 4, i.e. 32 < T <= 64):
 // one dim block (n_pad == dim_block) holding num_dims <= 16, 16-byte rows;
 // pitch and k bounds are then compile-time and every loop unrolls.  The
 // dims from num_dims to 16 are zeros (the tiles' padding, or never-copied
@@ -244,6 +264,7 @@ __global__ void __launch_bounds__(kThreads) k1_counts_kernel(const Args a) {
   const int ty = tid / kSide;
   const int tx = tid % kSide;
   const int t = a.t;
+  const bool sliced = KD == 0 && a.slab > 0;
   const int beg = (int)((long long)a.num_pairs * blockIdx.x / gridDim.x);
   const int end = (int)((long long)a.num_pairs * (blockIdx.x + 1) / gridDim.x);
   if (beg >= end) return;
@@ -272,24 +293,28 @@ __global__ void __launch_bounds__(kThreads) k1_counts_kernel(const Args a) {
   for (int i = 0; i < MT; ++i) cnt[i] = 0;
   int skipped_sum = 0;
 
-  load_tile<KD>(b_ring, a.tiles + (size_t)a.pair_b[beg] * tile_elems, a, pitch);
+  if (!sliced) load_tile<KD>(b_ring, a.tiles + (size_t)a.pair_b[beg] * tile_elems, a, pitch);
 
   for (int p = beg; p < end; ++p) {
-    const int slot = (p - beg) & 1;
+    const int slot = sliced ? 0 : (p - beg) & 1;  // sliced: B's slices all go to slot 0
     const float* b_s = b_ring + slot * RS * pitch;
     const int ta = a.pair_a[p];
     const int tb = a.pair_b[p];
     if (ta != cur_a) {  // a new run: flush the last one, stage its A tile
       if (FUSED && cur_a >= 0) flush_run<MT>(cnt, cur_a, la, a, ty, tx);
-      __syncthreads();  // every thread is done reading the old A
-      load_tile<KD>(a_s, a.tiles + (size_t)ta * tile_elems, a, pitch);
+      if (!sliced) {
+        __syncthreads();  // every thread is done reading the old A
+        load_tile<KD>(a_s, a.tiles + (size_t)ta * tile_elems, a, pitch);
+      }
       cur_a = ta;
       la = min(a.tile_len[ta], t);
     }
-    cp_async_wait_all();
-    __syncthreads();  // this pair's tiles are visible; pair p - 1 is done with the other slot
-    if (p + 1 < end)
-      load_tile<KD>(b_ring + (slot ^ 1) * RS * pitch, a.tiles + (size_t)a.pair_b[p + 1] * tile_elems, a, pitch);
+    if (!sliced) {
+      cp_async_wait_all();
+      __syncthreads();  // this pair's tiles are visible; pair p - 1 is done with the other slot
+      if (p + 1 < end)
+        load_tile<KD>(b_ring + (slot ^ 1) * RS * pitch, a.tiles + (size_t)a.pair_b[p + 1] * tile_elems, a, pitch);
+    }
     const int lb = min(a.tile_len[tb], t);
 
     float d2[MT][MT];
@@ -302,17 +327,44 @@ __global__ void __launch_bounds__(kThreads) k1_counts_kernel(const Args a) {
     for (int blk = 0; blk < real_blocks; ++blk) {
       const int k0 = KD > 0 ? 0 : blk * db;
       const int k1 = KD > 0 ? KD : min(k0 + db, a.num_dims);
-      if (tid < RS) {
-        nb_s[tid] = row_norm<KD>(b_s + tid * pitch, k0, k1);
-      } else if (tid < 2 * RS) {
-        na_s[tid - RS] = row_norm<KD>(a_s + (tid - RS) * pitch, k0, k1);
-      }
+      // this block's row norms: thread tid < RS of B row tid, the next RS of A's rows
       float prod[MT][MT];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < MT; ++j) prod[i][j] = 0.f;
-      accumulate<MT, KD>(prod, a_s, b_s, pitch, k0, k1, ty, tx);
+      if (sliced) {  // the slices [base, base + slab) of the slab grid that meet [k0, k1)
+        const float* A = a.tiles + (size_t)ta * tile_elems;
+        const float* B = a.tiles + (size_t)tb * tile_elems;
+        float norm = 0.f;
+        for (int base = k0 - k0 % a.slab; base < k1; base += a.slab) {
+          const int lo = max(k0, base);
+          const int hi = min(k1, base + a.slab);
+          __syncthreads();  // every thread is done reading the last slice
+          load_dims<KD>(a_s, A, a, pitch, lo & ~3, hi, base);
+          load_dims<KD>(b_ring, B, a, pitch, lo & ~3, hi, base);  // slot 0: b_s
+          cp_async_wait_all();
+          __syncthreads();
+          if (tid < RS) {
+            norm = row_norm<KD>(b_s + tid * pitch, lo - base, hi - base, norm);
+          } else if (tid < 2 * RS) {
+            norm = row_norm<KD>(a_s + (tid - RS) * pitch, lo - base, hi - base, norm);
+          }
+          accumulate<MT, KD>(prod, a_s, b_s, pitch, lo - base, hi - base, ty, tx);
+        }
+        if (tid < RS) {
+          nb_s[tid] = norm;
+        } else if (tid < 2 * RS) {
+          na_s[tid - RS] = norm;
+        }
+      } else {
+        if (tid < RS) {
+          nb_s[tid] = row_norm<KD>(b_s + tid * pitch, k0, k1, 0.f);
+        } else if (tid < 2 * RS) {
+          na_s[tid - RS] = row_norm<KD>(a_s + (tid - RS) * pitch, k0, k1, 0.f);
+        }
+        accumulate<MT, KD>(prod, a_s, b_s, pitch, k0, k1, ty, tx);
+      }
       __syncthreads();  // norms visible
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -396,6 +448,17 @@ inline size_t smem_bytes(int rs, int pitch) {
   return ((size_t)3 * rs * pitch + 2 * rs + kThreads / 32) * sizeof(float);
 }
 
+// Whole rows where an A tile and two B tiles of them fit, else slices of
+// kSlab dims: sets a.slab and a.pitch.
+inline void choose_staging(Args& a, int rs) {
+  a.pitch = tile_pitch(a.num_dims);
+  a.slab = 0;
+  if (smem_bytes(rs, a.pitch) > kMaxSmem) {
+    a.slab = kSlab;
+    a.pitch = tile_pitch(kSlab);
+  }
+}
+
 template <int MT, bool FUSED, int KD>
 int launch_mt(Args a, cudaStream_t stream) {
   constexpr int RS = MT * kSide;
@@ -424,7 +487,10 @@ int launch_mt(Args a, cudaStream_t stream) {
     cached_smem = smem;
     cached_grid = per_sm * sms;
   }
-  const int grid = a.num_pairs < cached_grid ? a.num_pairs : cached_grid;
+  // sliced staging reuses nothing across pairs: one CTA per pair, so that
+  // the block scheduler balances pairs whose SHORTC breaks at different blocks
+  int grid = a.slab > 0 || a.num_pairs < cached_grid ? a.num_pairs : cached_grid;
+  if (a.max_ctas > 0 && a.max_ctas < grid) grid = a.max_ctas;
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -432,12 +498,11 @@ int launch_mt(Args a, cudaStream_t stream) {
 template <bool FUSED>
 int launch(Args a, cudaStream_t stream) {
   if (a.t < 1 || a.t > kMaxT || a.dim_block < 1 || a.n_pad % a.dim_block != 0 || a.num_dims < 1 ||
-      a.num_dims > a.n_pad)
+      a.num_dims > a.n_pad || a.max_ctas < 0)
     return (int)cudaErrorInvalidValue;
-  a.pitch = tile_pitch(a.num_dims);
   a.vec_copy = (a.n_pad % 4 == 0 && reinterpret_cast<uintptr_t>(a.tiles) % 16 == 0) ? 1 : 0;
   const int mt = a.t <= 16 ? 1 : a.t <= 32 ? 2 : a.t <= 64 ? 4 : 8;
-  if (smem_bytes(mt * kSide, a.pitch) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  choose_staging(a, mt * kSide);
   if (a.num_pairs <= 0) return 0;
   switch (mt) {
     case 1: return launch_mt<1, FUSED, 0>(a, stream);
@@ -451,10 +516,11 @@ int launch(Args a, cudaStream_t stream) {
 
 }  // namespace k1
 
-// (a) per pair: counts (P, t) int32 and skipped (P,) int32.
+// (a) per pair: counts (P, t) int32 and skipped (P,) int32.  max_ctas > 0
+// caps the grid (each CTA then walks a longer range); 0 takes the full grid.
 extern "C" int distance_tile_pair_counts(const float* tiles, const int* tile_len, const int* pair_a,
                                          const int* pair_b, int num_pairs, int t, int n_pad, int num_dims,
-                                         int dim_block, float eps2, int* counts, int* skipped,
+                                         int dim_block, float eps2, int* counts, int* skipped, int max_ctas,
                                          void* stream) {
   k1::Args a = {};
   a.tiles = tiles;
@@ -469,6 +535,7 @@ extern "C" int distance_tile_pair_counts(const float* tiles, const int* tile_len
   a.eps2 = eps2;
   a.counts = counts;
   a.skipped = skipped;
+  a.max_ctas = max_ctas;
   return k1::launch<false>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -478,7 +545,8 @@ extern "C" int distance_tile_pair_counts(const float* tiles, const int* tile_len
 extern "C" int distance_tile_count_scatter(const float* tiles, const int* tile_len, const int* tile_start,
                                            const int* pair_a, const int* pair_b, int real, int t, int n_pad,
                                            int num_dims, int dim_block, float eps2, int* counts_sorted,
-                                           int n_sorted, int* skipped_tot, int shortc, void* stream) {
+                                           int n_sorted, int* skipped_tot, int shortc, int max_ctas,
+                                           void* stream) {
   k1::Args a = {};
   a.tiles = tiles;
   a.tile_len = tile_len;
@@ -495,5 +563,6 @@ extern "C" int distance_tile_count_scatter(const float* tiles, const int* tile_l
   a.tile_start = tile_start;
   a.skipped_tot = skipped_tot;
   a.shortc = shortc;
+  a.max_ctas = max_ctas;
   return k1::launch<true>(a, static_cast<cudaStream_t>(stream));
 }

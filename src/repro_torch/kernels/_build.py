@@ -34,7 +34,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 MAX_TILE = 128  # tile_eval.cuh, distance_tile_counts.cu: kMaxT
-MAX_SMEM = 232448  # distance_tile_counts.cu: kMaxSmem, a block's shared memory on sm_90
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +45,8 @@ SIGNATURES = {
         "distance_tile_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     },
     "distance_tile_counts": {
-        "distance_tile_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-        "distance_tile_count_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _P],
+        "distance_tile_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P],
+        "distance_tile_count_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _I, _P],
     },
     "dense_tile": {
         "dense_tile_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],

@@ -147,29 +147,29 @@ def _dims(tiles, dim_block, num_dims):
     return n
 
 
-def k1_smem_bytes(t, num_dims) -> int:
-    """Shared memory of one ``distance_tile_counts.cu`` block: the A tile and
-    a two-slot B ring at the row pitch the kernel uses (``tile_pitch``),
-    plus the norms and the SHORTC partial mins."""
+K1_MAX_SMEM = 232448  # distance_tile_counts.cu: kMaxSmem, a block's shared memory on sm_90
+K1_SLAB = 32  # distance_tile_counts.cu: kSlab, dims per slice where whole rows do not fit
+
+
+def _k1_pitch(dims) -> int:
+    """``tile_pitch`` of ``distance_tile_counts.cu``: a multiple of 4 floats
+    whose quarter is odd."""
+    pitch = -(-dims // 4) * 4
+    return pitch + 4 if (pitch // 4) % 2 == 0 else pitch
+
+
+def k1_staging(t, num_dims) -> int:
+    """How ``distance_tile_counts.cu`` stages tiles (its ``choose_staging``,
+    by shape only): 0 where an A tile and two B tiles of whole rows, with
+    the norms and the SHORTC partial mins, fit in a block's shared memory,
+    else ``K1_SLAB``, the width of the slices it stages instead."""
     rs = 16 * (1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8)
-    pitch = -(-num_dims // 4) * 4
-    if (pitch // 4) % 2 == 0:
-        pitch += 4
-    return (3 * rs * pitch + 2 * rs + 8) * 4
-
-
-def _check_k1(tiles, num_dims) -> None:
-    """What the K1 kernel refuses, raised before a launch."""
-    t = tiles.shape[1]
-    if 1 <= t <= _build.MAX_TILE and k1_smem_bytes(t, num_dims) > _build.MAX_SMEM:
-        raise ValueError(
-            f"K1 stages an A tile and two B tiles of T={t} x {num_dims} dims in shared memory: "
-            f"{k1_smem_bytes(t, num_dims)} bytes, above the card's {_build.MAX_SMEM}"
-        )
+    whole = (3 * rs * _k1_pitch(num_dims) + 2 * rs + 8) * 4
+    return 0 if whole <= K1_MAX_SMEM else K1_SLAB
 
 
 def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False,
-                       num_dims=None):
+                       num_dims=None, max_ctas=0):
     """Evaluate all candidate tile pairs (K1, or K2 with ``return_mask``).
 
     ``tiles (num_tiles, T, n_pad) f32``, ``tile_len (num_tiles,) int32``,
@@ -177,7 +177,10 @@ def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, re
     (default ``n_pad``) is the data's dimension count, the dims past it
     being zero padding.  Returns ``(counts (P,T) int32, skipped (P,) int32[,
     mask (P,T,T) int8])``.  CUDA ``tiles`` launch a CUDA kernel (T <= 128,
-    see ``_route``); CPU ``tiles`` run the plain version.
+    see ``_route``); CPU ``tiles`` run the plain version.  ``max_ctas > 0``
+    caps K1's persistent grid on the card, so that each CTA walks a longer
+    range of pairs (it changes no result; the tests use it to put many
+    runs of ``pair_a`` in one range).
     """
     n = _dims(tiles, dim_block, num_dims)
     route = _route(tiles.device, return_mask)
@@ -190,7 +193,6 @@ def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, re
         return _launch_tile_eval("distance_tile_mask", "tile_pair_distance_mask",
                                  tiles, tile_len, pair_a, pair_b, eps, dim_block)
     _build.check_tile_args(tiles, tile_len, pair_a, pair_b)
-    _check_k1(tiles, n)
     p, t = pair_a.shape[0], tiles.shape[1]
     counts = torch.empty((p, t), dtype=torch.int32, device=tiles.device)
     skipped = torch.empty((p,), dtype=torch.int32, device=tiles.device)
@@ -198,7 +200,7 @@ def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, re
     with torch.cuda.device(tiles.device):
         err = fn(tiles.data_ptr(), tile_len.data_ptr(), pair_a.data_ptr(), pair_b.data_ptr(),
                  p, t, tiles.shape[2], n, dim_block, eps_squared(eps),
-                 counts.data_ptr(), skipped.data_ptr(),
+                 counts.data_ptr(), skipped.data_ptr(), int(max_ctas),
                  torch.cuda.current_stream(tiles.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"distance_tile_pair_counts: CUDA launch failed with cudaError {err}")
@@ -271,23 +273,24 @@ def tile_pair_count_scatter_plain(counts_sorted, skipped_tot, tiles, tile_len, t
 class CountScatter:
     """The fused chunk step bound to one pass's tables on the card.
 
-    Validates the tables, looks up the kernel and the current stream once;
-    each call ``step(pa, pb, real)`` is one launch of
-    ``distance_tile_count_scatter`` on chunk ``(pa, pb)`` (contiguous int32
-    views, pairs past ``real`` ignored).  The caller keeps ``tiles``'s
-    device current (``torch.cuda.device``) while it calls.
+    Validates the tables, looks up the kernel and the current stream once,
+    and holds the tables for as long as it lives; each call ``step(pa, pb,
+    real)`` checks the chunk's dtype, layout and length and is one launch
+    of ``distance_tile_count_scatter`` on chunk ``(pa, pb)`` (int32,
+    contiguous, on the tables' device; pairs past ``real`` ignored).  The
+    caller keeps ``tiles``'s device current (``torch.cuda.device``) while
+    it calls.  ``max_ctas`` is ``tile_pair_distance``'s.
     """
 
-    __slots__ = ("_fn", "_args", "_tail", "_stream")
+    __slots__ = ("_fn", "_tables", "_args", "_tail", "_stream", "_device")
 
     def __init__(self, counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps, *, dim_block, shortc,
-                 num_dims=None):
+                 num_dims=None, max_ctas=0):
         n = _dims(tiles, dim_block, num_dims)
         if tiles.device.type != "cuda":
             raise ValueError(f"CountScatter runs on cuda tensors, not {tiles.device}")
         empty = torch.zeros(0, dtype=torch.int32, device=tiles.device)
         _build.check_tile_args(tiles, tile_len, empty, empty)
-        _check_k1(tiles, n)
         for arg, what, shape in ((tile_start, "tile_start", tile_len.shape),
                                  (skipped_tot, "skipped_tot", None), (counts_sorted, "counts_sorted", None)):
             if arg.dtype != torch.int32 or arg.device != tiles.device or not arg.is_contiguous():
@@ -297,14 +300,22 @@ class CountScatter:
         if skipped_tot.numel() != 1 or counts_sorted.dim() != 1 or counts_sorted.shape[0] < 1:
             raise ValueError("skipped_tot must hold one value and counts_sorted be (N + 1,)")
         self._fn = _build.function("distance_tile_counts", "distance_tile_count_scatter")
+        # the kernel keeps raw pointers: the tensors live as long as the step
+        self._tables = (tiles, tile_len, tile_start, counts_sorted, skipped_tot)
         self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr())
         self._tail = (tiles.shape[1], tiles.shape[2], n, dim_block, eps_squared(eps),
                       counts_sorted.data_ptr(), counts_sorted.shape[0] - 1, skipped_tot.data_ptr(),
-                      int(bool(shortc)))
+                      int(bool(shortc)), int(max_ctas))
         self._stream = torch.cuda.current_stream(tiles.device).cuda_stream
+        self._device = tiles.device
 
     def __call__(self, pa, pb, real) -> None:
-        if real <= 0:
+        if (pa.dtype != torch.int32 or pb.dtype != torch.int32 or not pa.is_contiguous()
+                or not pb.is_contiguous() or pa.device != self._device or pb.device != self._device):
+            raise ValueError(f"pa and pb must be contiguous int32 tensors on {self._device}")
+        if not 0 <= real <= min(pa.shape[0], pb.shape[0]):
+            raise ValueError(f"real={real} outside 0..{min(pa.shape[0], pb.shape[0])}")
+        if real == 0:
             return
         err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
         if err != 0:
@@ -326,8 +337,6 @@ def tile_pair_count_scatter(counts_sorted, skipped_tot, tiles, tile_len, tile_st
             counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
             dim_block=dim_block, shortc=shortc, num_dims=num_dims)
     _build.check_tile_args(tiles, tile_len, pa, pb)
-    if not 0 <= real <= pa.shape[0]:
-        raise ValueError(f"real={real} outside 0..{pa.shape[0]}")
     with torch.cuda.device(tiles.device):
         CountScatter(counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
                      dim_block=dim_block, shortc=shortc, num_dims=num_dims)(pa, pb, real)

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
+from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engine
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -127,7 +127,8 @@ def test_k1_epilogues_equal_plain_and_earlier_kernel(cuda, case, eps):
     before = dict(distance_tile.LAUNCHES)
     k1_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, shortc, eps, seed=3000 + case)
     grew = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
-    assert grew == {"tile_pair_distance": 1, "tile_pair_count_scatter": 1, "tile_pair_distance_mask": 0,
+    # each epilogue on three grids (chip_smoke.k1_grids), the earlier kernel once
+    assert grew == {"tile_pair_distance": 3, "tile_pair_count_scatter": 3, "tile_pair_distance_mask": 0,
                     "tile_pair_distance_tile_eval": 1}
 
 
@@ -135,10 +136,11 @@ def _launches():
     return {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
 
 
-@pytest.mark.parametrize("n,dim_block,eps", [(16, 32, 0.15), (20, 8, 0.15)])
+@pytest.mark.parametrize("n,dim_block,eps", [(16, 32, 0.15), (20, 8, 0.15), (384, 32, 0.9)])
 def test_engine_count_launches_the_fused_kernel_once_per_chunk(cuda, n, dim_block, eps):
-    """16 dims in one block (K1's fast path), and 20 dims over three blocks
-    of 8 (n_pad 24) on clustered data where SHORTC skips blocks."""
+    """16 dims in one block (K1's fast path), 20 dims over three blocks of
+    8 (n_pad 24) on clustered data where SHORTC skips blocks, and 384 dims
+    at T = 64, too wide to stage whole (K1 stages them in slices)."""
     rng = np.random.default_rng(n)
     centers = rng.random((20, n))
     d = centers[rng.integers(0, 20, 3000)] + rng.normal(0, 0.03, (3000, n))
@@ -147,6 +149,11 @@ def test_engine_count_launches_the_fused_kernel_once_per_chunk(cuda, n, dim_bloc
     eng = EngineConfig(count_chunk=256)
     card = SelfJoinEngine(d, cfg, eng, device=cuda)
     host = SelfJoinEngine(d, cfg, eng, device="cpu")
+    assert isinstance(engine.count_step(
+        torch.zeros(1, dtype=torch.int32, device=cuda), torch.zeros((), dtype=torch.int32, device=cuda),
+        card.snapshot.tiles, card.snapshot.tile_len, card.snapshot.tile_start, eps,
+        dim_block=dim_block, shortc=True, backend="pallas"), distance_tile.CountScatter)
+    assert distance_tile.k1_staging(card.snapshot.tiles.shape[1], n) == (distance_tile.K1_SLAB if n > 300 else 0)
     before = _launches()
     got = card.count()
     torch.cuda.synchronize()
@@ -156,7 +163,7 @@ def test_engine_count_launches_the_fused_kernel_once_per_chunk(cuda, n, dim_bloc
     np.testing.assert_array_equal(got.counts, want.counts)
     assert got.stats == want.stats
     assert got.stats.num_chunks > 1
-    if dim_block == 8:
+    if n != 16:
         assert got.stats.dim_blocks_skipped > 0
 
 

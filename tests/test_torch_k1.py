@@ -29,13 +29,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import k1_case  # noqa: E402
 
 # (T, n, dim_block, pair order, C, real): n < n_pad, n = 1 and dim_block + 1,
-# up to 5 dim blocks, dim blocks that are not multiples of 4
+# up to 5 dim blocks, dim blocks that are not multiples of 4, and rows as
+# wide as those the card's kernel stages in slices (150 dims)
 CASES = [
     (8, 9, 8, "sorted", 40, 33),
     (16, 1, 8, "random", 40, 40),
     (16, 20, 4, "sorted", 40, 29),
     (33, 17, 16, "random", 40, 35),
     (12, 6, 3, "sorted", 40, 40),
+    (8, 150, 40, "sorted", 40, 37),
 ]
 
 
@@ -154,21 +156,41 @@ def test_route_reads_device_and_mode(device, mask, route):
         distance_tile._route(torch.device("meta"), mask)
 
 
-@pytest.mark.parametrize(
-    "backend,device,route",
-    [("pallas", "cuda", "fused"), ("jnp", "cuda", "fused"), ("dense", "cuda", "chunk_step"),
-     ("dense_jnp", "cuda", "chunk_step"), ("pallas", "cpu", "chunk_step"), ("jnp", "cpu", "chunk_step")],
-)
-def test_count_route_reads_backend_and_device(backend, device, route):
-    assert engine.count_route(backend, torch.device(device)) == route
+@pytest.mark.parametrize("backend", ["pallas", "jnp", "dense", "dense_jnp"])
+def test_count_step_off_the_card_is_count_chunk_step(backend):
+    """Off the card ``count_step`` binds ``count_chunk_step`` (on the card
+    the indexed tier binds a ``CountScatter``, tests/test_torch_cuda.py)."""
+    t, n, db, order, c, real = CASES[2]
+    x = _case(t, n, db, order, c, seed=5)
+    tabs = [torch.from_numpy(x[k]) for k in ("tiles", "lens", "starts")]
+    outs = []
+    for bound in (True, False):
+        cs, sk = torch.from_numpy(x["state"].copy()), torch.zeros((), dtype=torch.int32)
+        pa, pb = torch.from_numpy(x["pa"]), torch.from_numpy(x["pb"])
+        if bound:
+            step = engine.count_step(cs, sk, *tabs, 0.3, dim_block=db, shortc=True, backend=backend, num_dims=n)
+            assert not isinstance(step, distance_tile.CountScatter)
+            step(pa, pb, real)
+        else:
+            engine.count_chunk_step(cs, sk, *tabs, pa, pb, real, 0.3, dim_block=db, shortc=True, backend=backend,
+                                    num_dims=n)
+        outs.append((cs, sk))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
-def test_k1_refuses_tiles_its_shared_memory_cannot_hold():
-    assert distance_tile.k1_smem_bytes(64, 16) == (3 * 64 * 20 + 2 * 64 + 8) * 4
-    assert distance_tile.k1_smem_bytes(128, 90) < 232448      # Songs, 90 dims, at T = 128
+# (T, num_dims, slab): whole rows up to the 227 KB of a block's shared
+# memory, 32-dim slices past it
+STAGING = [(64, 16, 0), (64, 300, 0), (64, 301, 32), (64, 384, 32), (128, 90, 0), (128, 148, 0),
+           (128, 149, 32), (16, 1204, 0), (16, 1205, 32), (32, 604, 0), (32, 605, 32), (100, 150, 32)]
+
+
+@pytest.mark.parametrize("t,num_dims,slab", STAGING)
+def test_k1_staging_is_chosen_by_shape(t, num_dims, slab):
+    assert distance_tile.k1_staging(t, num_dims) == slab
+
+
+def test_k1_refuses_num_dims_past_n_pad():
     tiles = torch.zeros((2, 128, 160))
-    with pytest.raises(ValueError, match="shared memory"):
-        distance_tile._check_k1(tiles, 160)
     with pytest.raises(ValueError, match="num_dims"):
         distance_tile.tile_pair_distance(tiles, torch.zeros(2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
                                          torch.zeros(1, dtype=torch.int32), eps=0.1, num_dims=161)
