@@ -19,20 +19,32 @@ Phases, each printing one JSON line:
    earlier ``tile_eval.cuh`` kernel, all with ``==``, each on the full
    grid, on one CTA and on a grid whose CTA ranges end on run changes of
    pair_a; and K1 at T=64 x 384 dims, staged in slices, timed beside the
-   earlier kernel); then the main
-   path's own chunks at full width (equal up to the stated eps-boundary
-   tolerance), with torch.profiler device times of the kernel, the plain
-   version and one PyTorch yardstick, and the bound the card could reach
-   on the same work over the data's real dimensions; K1 beside its
-   earlier kernel on the same chunk, and the fused chunk step beside the
-   composed steps it replaced;
+   earlier kernel); the dense sweep (``DENSE_CASES``: the three epilogues
+   of ``csrc/dense_tile_fused.cu`` -- K3 / K4 per pair, the dense count
+   chunk step, the dense pairs chunk step from five states of the pair
+   buffer -- against their plain versions, and per pair against K3 / K4's
+   earlier ``tile_eval.cuh`` kernel, all with ``==`` on the same three
+   grids); then the main path's own chunks at full width (equal up to the
+   stated eps-boundary tolerance), with torch.profiler device times of
+   the kernel, the plain version and one PyTorch yardstick, and the bound
+   the card could reach on the same work over the data's real dimensions;
+   K1, K3 and K4 beside their earlier kernels on the same chunk, and the
+   three fused chunk steps (K1's count; the dense count and pairs) beside
+   the composed steps and the steps they replaced;
 3. count   -- ``SelfJoinEngine.count`` on Syn16D2M (2,000,000 x 16,
    exponential lambda=40; paper Table 1) at eps=0.03 with the default
    config, spot-checked against a float64 brute force on the card; it
    must launch K1's fused kernel once per chunk and no other kernel;
-4. pairs   -- ``SelfJoinEngine.pairs`` and the dense tier (``self_join``
-   with execution="dense", counts and pairs) on CoocTexture (68,040 x 16)
-   at eps=0.1;
+4. pairs   -- ``SelfJoinEngine.pairs`` and the dense tier
+   (``SelfJoinEngine`` with execution="dense", counts and pairs, its host
+   plan timed apart from its device part) on CoocTexture (68,040 x 16) at
+   eps=0.1: the dense count must launch the fused dense count kernel once
+   per chunk and nothing else, the dense pairs the fused pairs kernel twice
+   per chunk and nothing else but the result-size estimate's K3; then the
+   wide dense run, Syn64D2M (200,000 of its 2,000,000 x 64 points) at
+   eps=0.1 with execution="dense" (the general path: two dim blocks),
+   spot-checked against the float64 brute force and against the indexed
+   tier's counts, with the cost model's choice under execution="auto";
 5. attention -- ``flash_attention`` (K5), whose path is its own entry
    point (the self-join never calls it).  It has two CUDA routes: bf16 with
    head widths that are multiples of 8 up to 256 goes to the tensor-core kernel
@@ -50,12 +62,13 @@ Phases, each printing one JSON line:
    against the plain version) and the bound.  Its sweep and its full-width
    part each run right after phase 2's, so a faulty kernel fails the run
    before the long phases;
-6. profile -- a window of Syn16D2M count chunks run as the engine runs
+6. profile -- windows of Syn16D2M count chunks, CoocTexture dense count
+   chunks and CoocTexture dense pairs chunks, each run as the engine runs
    them, by the host clock, CUDA events and torch.profiler: the device's
-   busy share and its kernels (K1's fused kernel only).  It runs before
-   phase 3.
+   busy share and its kernels (the fused kernel of the step only).  It
+   runs before phase 3.
 
-K1-K4's (and the fused step's) times are torch.profiler device time per launch, the mean over the
+K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
 records than launches, and one after phase 4 none), and every profiler
 session runs before phase 3.  K5's full-width times are CUDA events around
@@ -94,6 +107,8 @@ BOUNDARY_REL = 1e-5       # raw fp32 data: a count may differ only for pairs
 SYN_N = 2_000_000         # Syn16D2M at full size (no cut)
 SYN_EPS = 0.03
 COOC_EPS = 0.1
+WIDE_N = 200_000          # Syn64D2M cut from 2,000,000 points to 200,000
+WIDE_EPS = (0.1, 0.2)
 
 KERNELS = {
     # name: (module attribute, CUDA source, TPU kernel replaced, mask mode)
@@ -101,9 +116,9 @@ KERNELS = {
                            "src/repro/kernels/distance_tile.py:111", False),
     "tile_pair_distance_mask": ("distance_tile", "src/repro_torch/csrc/distance_tile.cu",
                                 "src/repro/kernels/distance_tile.py:98", True),
-    "dense_tile_distance": ("dense_tile", "src/repro_torch/csrc/dense_tile.cu",
+    "dense_tile_distance": ("dense_tile", "src/repro_torch/csrc/dense_tile_fused.cu",
                             "src/repro/kernels/dense_tile.py:98", False),
-    "dense_tile_distance_mask": ("dense_tile", "src/repro_torch/csrc/dense_tile.cu",
+    "dense_tile_distance_mask": ("dense_tile", "src/repro_torch/csrc/dense_tile_fused.cu",
                                  "src/repro/kernels/dense_tile.py:85", True),
     "flash_attention_wgmma": ("flash_attention", "src/repro_torch/csrc/flash_attention_wgmma.cu",
                               "src/repro/kernels/flash_attention.py:81", False),
@@ -113,8 +128,18 @@ TILE_KERNELS = [name for name, spec in KERNELS.items() if spec[0] != "flash_atte
 # of src/repro/core/engine.py:97 count_chunk_step's scatter
 SCATTER = ("tile_pair_count_scatter", "src/repro_torch/csrc/distance_tile_counts.cu",
            "src/repro/kernels/distance_tile.py:111")
+# the dense tier's fused chunk steps: epilogues (b) and (c) of K3 / K4's
+# kernel, which also do the work of src/repro/core/engine.py:97
+# count_chunk_step's scatter and :145 pairs_chunk_step's compaction
+DENSE_STEPS = {
+    "dense_count_scatter": ("src/repro_torch/csrc/dense_tile_fused.cu", "src/repro/kernels/dense_tile.py:98"),
+    "dense_pairs_compact": ("src/repro_torch/csrc/dense_tile_fused.cu", "src/repro/kernels/dense_tile.py:85"),
+}
 K1_KERNEL = "k1_counts_kernel"      # device name of both K1 epilogues (profiler filter)
-TILE_EVAL_KERNEL = "tile_pair_kernel"  # K2-K4 and K1's earlier kernel (tile_eval.cuh)
+DENSE_KERNEL = "dense_kernel"       # device name of K3 / K4's epilogues (dense_tile_fused.cu)
+TILE_EVAL_KERNEL = "tile_pair_kernel"  # K2 and K1 / K3 / K4's earlier kernels (tile_eval.cuh)
+PROFILED_KERNEL = {"tile_pair_distance": K1_KERNEL, "tile_pair_distance_mask": TILE_EVAL_KERNEL,
+                   "dense_tile_distance": DENSE_KERNEL, "dense_tile_distance_mask": DENSE_KERNEL}
 
 # phase 2: K1's sweep, (T, n, dim_block, pair order, C, real, shortc).  n <
 # n_pad, n = 1 and n = dim_block + 1; up to 12 dim blocks (SHORTC breaks
@@ -144,6 +169,23 @@ K1_CASES = [
     (64, 384, 32, "sorted", 300, 290, True), (128, 200, 40, "random", 300, 300, True),
     (100, 150, 50, "sorted", 2000, 1900, True), (16, 1210, 121, "sorted", 300, 300, True),
     (24, 700, 350, "random", 300, 280, False),
+]
+
+# phase 2: the dense sweep (K3 / K4's three epilogues in
+# csrc/dense_tile_fused.cu), (T, n, dim_block, pair order, C, real): T =
+# 1..128 at every thread-tile size, n < n_pad, up to 10 dim blocks, dim blocks
+# and widths that are not multiples of 4 (4-byte copies), the T=64 fast path
+# (one dim block of <= 16 dims) at 16 and 13 dims, CoocTexture's chunk shape
+# (T=64, 16 of 32 dims, 4096 A-major pairs), Syn64D2M's (two dim blocks),
+# rows too wide to stage whole (T=64 x 384, T=128 x 200, T=16 x 1210: 32-dim
+# slices), the dense plan's A-major order, sorted and random pairs, real < C.
+DENSE_CASES = [
+    (1, 1, 8, "dense", 300, 263), (8, 9, 8, "random", 300, 300), (16, 20, 4, "dense", 300, 290),
+    (24, 20, 8, "dense", 1024, 1000), (32, 7, 8, "random", 300, 300), (33, 17, 16, "dense", 300, 299),
+    (48, 5, 3, "dense", 1024, 1024), (64, 16, 32, "dense", 4096, 4000), (64, 13, 16, "random", 300, 300),
+    (64, 64, 32, "dense", 1024, 1000), (64, 40, 8, "sorted", 300, 263), (100, 24, 8, "dense", 300, 300),
+    (128, 90, 32, "dense", 300, 263), (128, 96, 48, "random", 300, 300), (64, 384, 32, "dense", 300, 290),
+    (128, 200, 40, "dense", 300, 300), (16, 1210, 121, "dense", 300, 280),
 ]
 
 # phase 5: the sweep (K5 against its plain version) and the full-width shapes
@@ -198,8 +240,11 @@ def ptxas_summary(text: str):
             flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", m.group(1))
             wgmma = re.search(r"flash_wgmma_kernelILi(\d)ELi(\d)E", m.group(1))
             k1 = re.search(r"k1_counts_kernelILi(\d)ELb(\d)ELi(\d+)E", m.group(1))
+            dense = re.search(r"dense_kernelILi(\d)ELi(\d)ELi(\d+)E", m.group(1))
             if k1:
                 name = "k1_counts_kernel<MT=%s,FUSED=%s,KD=%s>" % k1.groups()
+            elif dense:  # MODE 0: per pair, 1: count scatter, 2: pairs pass 1, 3: pairs pass 2
+                name = "dense_kernel<MT=%s,MODE=%s,KD=%s>" % dense.groups()
             elif args:
                 name = "tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
             elif flash:
@@ -376,6 +421,86 @@ def k1_case(torch, np, t, n, db, order, c, seed, device="cuda"):
     )
 
 
+DENSE_NOISE_VAR = 2 * (2 / 3) / 4096  # per dim: the variance of a difference of two {-1, 0, 1} / 64 noises
+
+
+def dense_case(torch, np, t, n, db, order, c, seed, device="cuda"):
+    """Inputs of one dense sweep case on ``device``: 12 tiles x t rows x n
+    dims padded to n_pad, 1/64-quantized points around 4 cluster centres
+    (noise of -1, 0 or 1 / 64 per dim; each tile from one cluster, tiles 2
+    and 3 equal), ragged lengths with tiles 0-3 full, ``tile_start`` into a
+    grid-sorted space of N = 12 t rows with a random ``point_order``, a sink
+    row at ``n_sorted`` = N - 3 for the count step (the last tile's last rows
+    drop), and c pairs: "dense" lists the tile cross product in the dense
+    plan's A-major order (runs of 12 equal pair_a) over and over, "sorted"
+    random pairs sorted by (pair_a, pair_b), "random" unsorted.  ``eps``
+    (hi, lo): squared radii of 1 and 0.4 times the mean squared distance of
+    two points of one cluster, so many tile pairs have hits and some none."""
+    rng = np.random.default_rng(seed)
+    num_tiles = 12
+    n_pad = -(-n // db) * db
+    centres = np.round(rng.uniform(0.25, 0.75, size=(4, n)) * 64) / 64
+    cluster = rng.integers(0, 4, size=num_tiles)
+    pts = np.zeros((num_tiles, t, n_pad), np.float32)
+    pts[:, :, :n] = centres[cluster][:, None, :] + rng.integers(-1, 2, size=(num_tiles, t, n)) / 64
+    pts[2] = pts[3]
+    lens = rng.integers(0, t + 1, size=num_tiles).astype(np.int32)
+    lens[:4] = t
+    for i in range(num_tiles):
+        pts[i, lens[i]:] = 0.0
+    if order == "dense":
+        idx = np.arange(num_tiles)
+        cross = np.stack([np.repeat(idx, num_tiles), np.tile(idx, num_tiles)], axis=1)
+        pairs = cross[np.arange(c) % len(cross)].astype(np.int32)
+    else:
+        pairs = rng.integers(0, num_tiles, size=(c, 2)).astype(np.int32)
+        if order == "sorted":
+            pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    num_points = num_tiles * t
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return dict(
+        tiles=to(pts), lens=to(lens), starts=to((np.arange(num_tiles) * t).astype(np.int32)),
+        pa=to(pairs[:, 0]), pb=to(pairs[:, 1]), n=n, n_sorted=num_points - 3,
+        point_order=to(rng.permutation(num_points).astype(np.int32)),
+        state=to(rng.integers(0, 50, size=num_points - 2).astype(np.int32)),
+        eps=tuple(float(np.sqrt(f * n * DENSE_NOISE_VAR)) for f in (1.0, 0.4)),
+    )
+
+
+def pairs_states(nh):
+    """Starting states of the pairs chunk step for a chunk of ``nh`` hits:
+    (name, offset before the chunk, cap, hit_cap).  All land ("fits"); at a
+    nonzero offset; fewer rank slots than hits (nh > hit_cap, the hit_cap
+    retry); a chunk that straddles cap; offset past cap before the chunk
+    (the capacity retry).  One cap and two hit_caps, so the reference's
+    programs see two buffer shapes."""
+    cap, hit_cap = nh + 47, nh + 3
+    return [
+        ("fits", 0, cap, hit_cap),
+        ("offset", 37, cap, hit_cap),
+        ("hits_past_hit_cap", 11, cap, max(1, nh // 3)),
+        ("straddles_cap", cap - nh // 2, cap, hit_cap),
+        ("past_cap", cap + 7, cap, hit_cap),
+    ]
+
+
+def pairs_state(torch, offset0, cap, hit_cap, device="cuda"):
+    """buf (cap + hit_cap, 2) int32 filled with -1 (no id, so rows no hit
+    lands on show), offset, and max_chunk_hits starting at 3."""
+    buf = torch.full((cap + hit_cap, 2), -1, dtype=torch.int32, device=device)
+    return (buf, torch.full((), offset0, dtype=torch.int32, device=device),
+            torch.full((), 3, dtype=torch.int32, device=device))
+
+
+def landed_rows(offset0, nh, cap, hit_cap):
+    """Rows of the buffer a pairs step's result is held on: those below
+    min(offset, cap) after the chunk and those its hits landed on.  Past
+    them the reference writes rows of clamped garbage ranks
+    (src/repro/core/engine.py:203-212)."""
+    woff = min(offset0, cap)
+    return max(woff + min(nh, hit_cap), min(offset0 + nh, cap))
+
+
 def run_edges(pa, num_pairs, grid):
     """Where the changes of ``pa`` fall against the ranges of ``grid`` CTAs
     over ``num_pairs`` pairs (CTA b takes [P b / G, P (b + 1) / G)): changes
@@ -490,6 +615,97 @@ def phase_k1_sweep(torch, np):
     return rec
 
 
+def dense_sweep_case(torch, np, dense_tile, t, n, db, order, c, real, eps_index, seed):
+    """One dense case on the card at ``dense_case``'s ``eps[eps_index]``, on
+    each of ``k1_grids``: epilogue (a) (counts, and counts with the mask)
+    against its plain version and against K3 / K4's earlier kernel
+    (dense_tile.cu); epilogue (b) (bound as ``DenseCountScatter``) against
+    its plain step; epilogue (c) (bound as ``DensePairsCompact``) against
+    its plain step from every state of ``pairs_states`` (the whole buffer,
+    offset and max_chunk_hits); all with ``==``.  Returns the chunk's hits
+    and the capped grids' ``run_edges`` summed."""
+    x = dense_case(torch, np, t, n, db, order, c, seed)
+    eps = x["eps"][eps_index]
+    args = (x["tiles"], x["lens"], x["pa"], x["pb"])
+    what = f"dense T={t} n={n} db={db} {order} C={c} real={real} eps={eps:.4f}"
+    want = dense_tile.dense_tile_distance_plain(*args, eps=eps, dim_block=db, return_mask=True, num_dims=n)
+    earlier = dense_tile.dense_tile_distance_tile_eval(*args, eps=eps, dim_block=db, return_mask=True)
+    tables = (x["tiles"], x["lens"], x["starts"])
+    want_cs = x["state"].clone()
+    dense_tile.dense_count_scatter_plain(want_cs, *tables, x["pa"], x["pb"], real, eps, dim_block=db, num_dims=n)
+    nh = int(want[0][:real].sum())
+    want_pairs = []
+    for name, offset0, cap, hit_cap in pairs_states(nh):
+        st = pairs_state(torch, offset0, cap, hit_cap)
+        dense_tile.dense_pairs_compact_plain(*st, *tables, x["point_order"], x["pa"], x["pb"], real, eps,
+                                             hit_cap=hit_cap, dim_block=db, num_dims=n)
+        want_pairs.append((name, offset0, cap, hit_cap, st))
+    pa = x["pa"].cpu().numpy()
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    for grid in k1_grids(pa[:real], real):
+        on = f"{what} grid={grid or 'full'}"
+        (counts,) = dense_tile.dense_tile_distance(*args, eps=eps, dim_block=db, num_dims=n, max_ctas=grid)
+        got = dense_tile.dense_tile_distance(*args, eps=eps, dim_block=db, return_mask=True, num_dims=n,
+                                             max_ctas=grid)
+        cs = x["state"].clone()
+        dense_tile.DenseCountScatter(cs, *tables, eps, dim_block=db, num_dims=n, max_ctas=grid)(x["pa"], x["pb"], real)
+        torch.cuda.synchronize()
+        check(torch.equal(counts, want[0]), f"{on}: counts of K3 != plain")
+        for g, w, e, part in zip(got, want, earlier, ("counts", "mask")):
+            check(torch.equal(g, w), f"{on}: {part} of K4 != plain")
+            check(torch.equal(g, e), f"{on}: {part} of K4 != K3 / K4's earlier kernel")
+        check(torch.equal(cs, want_cs), f"{on}: counts_sorted of the fused count step != plain")
+        for name, offset0, cap, hit_cap, (w_buf, w_off, w_max) in want_pairs:
+            buf, off, mx = pairs_state(torch, offset0, cap, hit_cap)
+            dense_tile.DensePairsCompact(buf, off, mx, *tables, x["point_order"], eps, hit_cap=hit_cap, chunk=c,
+                                         dim_block=db, num_dims=n, max_ctas=grid)(x["pa"], x["pb"], real)
+            torch.cuda.synchronize()
+            check(int(off) == int(w_off) == offset0 + nh and int(mx) == int(w_max),
+                  f"{on} {name}: offset {int(off)} / max_chunk_hits {int(mx)} != plain's {int(w_off)} / {int(w_max)}")
+            check(torch.equal(buf, w_buf), f"{on} {name}: the fused pairs step's buffer != plain")
+        if grid:
+            for num, q in ((c, pa), (real, pa[:real])):
+                for k, v in run_edges(q, num, min(grid, num)).items():
+                    edges[k] += v
+    return nh, edges
+
+
+def phase_dense_sweep(torch, np):
+    """DENSE_CASES at both of ``dense_case``'s radii, each on three grids;
+    every MT, both stagings and chunks with and without hits must occur,
+    and the capped grids must put run changes inside, on and across edges."""
+    from repro_torch.kernels import dense_tile
+
+    cases, hits, empty = 0, 0, 0
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    staging = set()
+    before = dict(dense_tile.LAUNCHES)
+    t0 = time.perf_counter()
+    for i, (t, n, db, order, c, real) in enumerate(DENSE_CASES):
+        staging.add((dense_tile.dense_staging(t, n), 1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8))
+        for eps_index in (0, 1):
+            nh, e = dense_sweep_case(torch, np, dense_tile, t, n, db, order, c, real, eps_index, seed=5000 + i)
+            hits += nh
+            empty += nh == 0
+            for k, v in e.items():
+                edges[k] += v
+            cases += 1
+    launched = {k: dense_tile.LAUNCHES[k] - before[k] for k in before}
+    grids, states = 3, len(pairs_states(0))
+    expect = {"dense_tile_distance": grids * cases, "dense_tile_distance_mask": grids * cases,
+              "dense_count_scatter": grids * cases, "dense_pairs_compact": 2 * states * grids * cases,
+              "dense_tile_distance_tile_eval": cases}
+    check(launched == expect, f"the dense sweep launched {launched} for {cases} cases, expected {expect}")
+    check(all(edges.values()), f"the capped grids put pair_a's run changes at {edges}")
+    check({s for s, _ in staging} == {0, dense_tile.K1_SLAB} and {mt for _, mt in staging} == {1, 2, 4, 8},
+          f"the dense sweep staged (slab, MT) {sorted(staging)}")
+    rec = {"phase": "dense_sweep", "cases": cases, "hits": hits, "cases_without_hits": empty,
+           "run_edges": edges, "staging_slab_mt": sorted(staging), "launches": launched,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def boundary_band(a, b):
     """float64 d2 between the rows of a (..., Ta, n) and b (..., Tb, n), and
     the band BOUNDARY_REL * (|a|^2 + |b|^2) around eps^2 inside which an fp32
@@ -524,6 +740,29 @@ def count_bounds(torch, pts, rows, eps):
     return torch.cat(lo).cpu().numpy(), torch.cat(hi).cpu().numpy()
 
 
+def kernel_ms(torch, fn, iters=20):
+    """torch.profiler over ``iters`` calls of ``fn`` (after one to warm up):
+    per kernel name, (device ms per record, the mean over the records kept,
+    records kept)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        if us > 0 and evt.count:
+            out[evt.key] = (us / 1e3 / evt.count, evt.count)
+    check(out, f"torch.profiler recorded no device time of {fn}")
+    return out
+
+
 def device_ms(torch, fn, iters=20, kernel=None):
     """Device time from torch.profiler over ``iters`` calls of ``fn``: per
     call, summed over every kernel it launches, or, given ``kernel`` (a name
@@ -536,24 +775,10 @@ def device_ms(torch, fn, iters=20, kernel=None):
     record stays right where a sum over calls does not.  Fails when the
     profiler recorded no device time, or none of ``kernel``.
     """
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_ms, records = 0.0, 0
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        if us > 0 and (kernel is None or kernel in evt.key):
-            total_ms += us / 1e3
-            records += evt.count
+    picked = [(ms * n, n) for key, (ms, n) in kernel_ms(torch, fn, iters).items() if kernel is None or kernel in key]
+    records = sum(n for _, n in picked)
     check(records, f"torch.profiler recorded no device time of {kernel or fn}")
-    return total_ms / (records if kernel else iters), records
+    return sum(ms for ms, _ in picked) / (records if kernel else iters), records
 
 
 def smi_sample():
@@ -610,12 +835,12 @@ def phase_real_width(torch, np, fns, inputs):
     """Each kernel on a main-path chunk: compare with plain, time all three."""
     from repro_torch.kernels.distance_tile import eps_squared
 
-    from repro_torch.kernels import distance_tile
+    from repro_torch.kernels import dense_tile, distance_tile
 
     rows = {}
     for name, (kern, plain) in fns.items():
         tiles, lens, pa, pb, n, eps, db, source = inputs[name]
-        kw = dict(eps=eps, dim_block=db, **({"num_dims": n} if name == "tile_pair_distance" else {}))
+        kw = dict(eps=eps, dim_block=db, **({} if name == "tile_pair_distance_mask" else {"num_dims": n}))
         got = kern(tiles, lens, pa, pb, **kw)
         want = plain(tiles, lens, pa, pb, **kw)
         torch.cuda.synchronize()
@@ -638,8 +863,7 @@ def phase_real_width(torch, np, fns, inputs):
         run_k = lambda: kern(tiles, lens, pa, pb, **kw)  # noqa: E731
         run_p = lambda: plain(tiles, lens, pa, pb, **kw)  # noqa: E731
         run_l = lambda: yardstick(torch, tiles, lens, pa, pb, eps2)  # noqa: E731
-        k_ms, k_records = device_ms(torch, run_k, kernel=K1_KERNEL if name == "tile_pair_distance"
-                                    else TILE_EVAL_KERNEL)
+        k_ms, k_records = device_ms(torch, run_k, kernel=PROFILED_KERNEL[name])
         p_ms, _ = device_ms(torch, run_p, iters=5)
         l_ms, _ = device_ms(torch, run_l, iters=5)
         b_ms, b_by, nbytes, flop = bound(torch, tiles, pa, pb, n, db, skipped, mask)
@@ -651,6 +875,15 @@ def phase_real_width(torch, np, fns, inputs):
             e_ms, _ = device_ms(torch, run_e, kernel=TILE_EVAL_KERNEL)
             extra = {"earlier_ms": e_ms, "earlier_count_diffs": int((e_got[0] != got[0]).sum()),
                      "earlier": "K1's tile_eval.cuh kernel (src/repro_torch/csrc/distance_tile.cu, all n_pad "
+                                "dims, one block per pair) on the same inputs in this run"}
+        if name.startswith("dense"):  # K3 / K4's earlier kernel (tile_eval.cuh) on the same inputs
+            run_e = lambda: dense_tile.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db,  # noqa: E731
+                                                                     return_mask=mask)
+            e_got = run_e()
+            e_ms, _ = device_ms(torch, run_e, kernel=TILE_EVAL_KERNEL)
+            extra = {"earlier_ms": e_ms, "earlier_count_diffs": int((e_got[0] != got[0]).sum()),
+                     "earlier_mask_diffs": int((e_got[-1] != got[-1]).sum()) if mask else None,
+                     "earlier": "K3 / K4's tile_eval.cuh kernel (src/repro_torch/csrc/dense_tile.cu, all n_pad "
                                 "dims, one block per pair) on the same inputs in this run"}
         rows[name] = {
             "inputs": source, "pairs": int(pa.shape[0]), "T": int(tiles.shape[1]), "n": n,
@@ -740,6 +973,157 @@ def phase_fused_step(torch, tiles, lens, starts, num_points, pa, pb, n, eps, db,
           "per call (composed, earlier: 20; plain, library: 5); event_ms: CUDA events over 50 back-to-back "
           "bound calls, host time included", **rec, "smi": smi_sample()})
     return rec
+
+
+def phase_dense_steps(torch, tables, point_order, num_points, count_chunk, pairs_chunk, n, eps, db, source):
+    """The dense tier's two fused chunk steps on main-path chunks: the count
+    step (epilogue b) on ``count_chunk``, the pairs step (epilogue c, both
+    passes) on ``pairs_chunk``.  Each is held exactly against the per-pair
+    epilogue (a) of the same kernel with the PyTorch step around it
+    (``scatter_counts``; ``engine.compact_mask``, the rank-select) and
+    against its plain version up to the eps-boundary lanes; timed beside
+    those, the step it replaced (K3 / K4's earlier kernel, dense_tile.cu,
+    with the same PyTorch step), the yardstick with the same PyTorch step,
+    and the bound over the real dims."""
+    from repro_torch.core.engine import compact_mask, count_step, pairs_step
+    from repro_torch.kernels import dense_tile as dt
+    from repro_torch.kernels.distance_tile import eps_squared, scatter_counts
+
+    tiles, lens, starts = tables
+    t = tiles.shape[1]
+    eps2 = eps_squared(eps)
+    rows = {}
+
+    # -- the count step
+    pa, pb = count_chunk
+    real = pa.shape[0]
+
+    def state():
+        return torch.zeros(num_points + 1, dtype=torch.int32, device="cuda")
+
+    def scatter(counts, st):
+        scatter_counts(st, None, counts, None, lens, starts, pa, real)
+
+    fused, composed, plain, near, earlier = state(), state(), state(), state(), state()
+    dt.DenseCountScatter(fused, tiles, lens, starts, eps, dim_block=db, num_dims=n)(pa, pb, real)
+    scatter(dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n)[0], composed)
+    dt.dense_count_scatter_plain(plain, tiles, lens, starts, pa, pb, real, eps, dim_block=db, num_dims=n)
+    scatter(dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db)[0], earlier)
+    scatter(boundary_slack(torch, tiles, lens, pa, pb, eps).sum(2, dtype=torch.int32), near)
+    torch.cuda.synchronize()
+    check(torch.equal(fused, composed), "the fused dense count step != K3's per-pair epilogue + scatter_counts")
+    diff = (fused - plain).abs()
+    check(bool((diff <= near).all()), "the fused dense count step differs from plain beyond the eps boundary")
+    st = state()
+    with torch.cuda.device(tiles.device):
+        step = count_step(st, torch.zeros((), dtype=torch.int32, device="cuda"), tiles, lens, starts, eps,
+                          dim_block=db, shortc=False, backend="dense", num_dims=n)
+        run_k = lambda: step(pa, pb, real)  # noqa: E731
+        k_ms, k_records = device_ms(torch, run_k, kernel=DENSE_KERNEL)
+        k_event_ms = event_ms(torch, run_k, iters=50)
+    run_c = lambda: scatter(dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, num_dims=n)[0], st)  # noqa: E731
+    run_e = lambda: scatter(dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db)[0], st)  # noqa: E731
+    run_p = lambda: dt.dense_count_scatter_plain(st, tiles, lens, starts, pa, pb, real, eps, dim_block=db,  # noqa: E731
+                                                 num_dims=n)
+    run_l = lambda: scatter(yardstick(torch, tiles, lens, pa, pb, eps2)[0], st)  # noqa: E731
+    b_ms, b_by, nbytes, flop = bound(torch, tiles, pa, pb, n, db, None, False)
+    touched = int(torch.unique(pa).numel()) * t
+    nbytes += touched * 4 * 2 - real * t * 4  # no (P, T) counts written: the touched counts rows read and written
+    rows["dense_count_scatter"] = {
+        "inputs": source, "pairs": real, "T": t, "n": n, "n_pad": int(tiles.shape[2]), "dim_block": db,
+        "max_abs_err": int(diff.max()), "boundary_lanes": int(near.sum()),
+        "earlier_count_diffs": int((earlier != fused).sum()),
+        "ms": k_ms, "profiler_records": k_records, "event_ms": k_event_ms,
+        "composed_ms": device_ms(torch, run_c)[0], "earlier_ms": device_ms(torch, run_e)[0],
+        "earlier_event_ms": event_ms(torch, run_e, iters=50),
+        "plain_ms": device_ms(torch, run_p, iters=5)[0], "library_ms": device_ms(torch, run_l, iters=5)[0],
+        "bound_ms": max(nbytes / PEAK_HBM_BYTES, flop / PEAK_FP32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / PEAK_HBM_BYTES > flop / PEAK_FP32_FLOPS else "operations",
+        "bytes": nbytes, "flop": flop,
+        "composed": "K3 per pair (dense_tile_fused.cu epilogue a) + scatter_counts, device time per call",
+        "earlier": "the step this kernel replaced: K3's tile_eval.cuh kernel (dense_tile.cu) + scatter_counts, "
+                   "device time per call (earlier_event_ms: CUDA events over 50 back-to-back calls)",
+        "library": "the baddbmm yardstick + scatter_counts",
+    }
+
+    # -- the pairs step
+    pa, pb = pairs_chunk
+    real = pa.shape[0]
+    counts, mask = dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True, num_dims=n)
+    nh = int(counts.sum())
+    hit_cap = max(4096, -(-nh // 1024) * 1024)  # the engine's window after its hit_cap retry
+    cap = nh + 8
+    landed = landed_rows(0, nh, cap, hit_cap)
+
+    def pstate():
+        return pairs_state(torch, 0, cap, hit_cap)
+
+    fused, composed, plain, earlier = pstate(), pstate(), pstate(), pstate()
+    dt.DensePairsCompact(*fused, tiles, lens, starts, point_order, eps, hit_cap=hit_cap, chunk=real, dim_block=db,
+                         num_dims=n)(pa, pb, real)
+    compact_mask(*composed, mask, starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    dt.dense_pairs_compact_plain(*plain, tiles, lens, starts, point_order, pa, pb, real, eps, hit_cap=hit_cap,
+                                 dim_block=db, num_dims=n)
+    e_mask = dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True)[1]
+    compact_mask(*earlier, e_mask, starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    near_lanes = int(boundary_slack(torch, tiles, lens, pa, pb, eps).sum())
+    torch.cuda.synchronize()
+    check(int(fused[1]) == int(composed[1]) == nh and int(fused[2]) == int(composed[2]),
+          f"the fused dense pairs step's offset / max {int(fused[1])} / {int(fused[2])} != composed's")
+    check(torch.equal(fused[0][:landed], composed[0][:landed]),
+          "the fused dense pairs step's buffer != K4's per-pair epilogue + the PyTorch compaction")
+    check(abs(int(plain[1]) - nh) <= near_lanes, "the fused dense pairs step's hits differ from plain beyond "
+          "the eps boundary")
+
+    def bound_step(st):
+        return pairs_step(*st, tiles, lens, starts, point_order, eps, hit_cap=hit_cap, dim_block=db,
+                          backend="dense", chunk=real, num_dims=n)
+
+    with torch.cuda.device(tiles.device):
+        step = bound_step(pstate())
+        run_k = lambda: step(pa, pb, real)  # noqa: E731
+        means = kernel_ms(torch, run_k)
+        k_event_ms = event_ms(torch, run_k, iters=50)
+    check(all(DENSE_KERNEL in k for k in means) and len(means) == 2,
+          f"the fused dense pairs step launched {sorted(means)}, not the fused kernel's two passes")
+    st = pstate()
+    run_c = lambda: compact_mask(*st, dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db,  # noqa: E731
+                                                             return_mask=True, num_dims=n)[1],
+                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    run_e = lambda: compact_mask(*st, dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps,  # noqa: E731
+                                                                       dim_block=db, return_mask=True)[1],
+                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    run_p = lambda: dt.dense_pairs_compact_plain(*st, tiles, lens, starts, point_order, pa, pb, real, eps,  # noqa: E731
+                                                 hit_cap=hit_cap, dim_block=db, num_dims=n)
+    run_l = lambda: compact_mask(*st, yardstick(torch, tiles, lens, pa, pb, eps2)[1].to(torch.int8),  # noqa: E731
+                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    _, _, nbytes, flop = bound(torch, tiles, pa, pb, n, db, None, False)
+    uniq = int(torch.unique(torch.cat([pa, pb])).numel())
+    # no (P, T) counts: the landed rows written (8 bytes each) and the touched point_order rows read
+    nbytes += min(nh, hit_cap) * 8 + uniq * t * 4 - real * t * 4
+    rows["dense_pairs_compact"] = {
+        "inputs": source, "pairs": real, "T": t, "n": n, "n_pad": int(tiles.shape[2]), "dim_block": db,
+        "hits": nh, "hit_cap": hit_cap, "boundary_lanes": near_lanes,
+        "max_abs_err": abs(int(plain[1]) - nh), "earlier_offset_diff": int(earlier[1]) - nh,
+        "ms": sum(ms for ms, _ in means.values()), "pass_ms": {k[:70]: v for k, v in means.items()},
+        "event_ms": k_event_ms,
+        "composed_ms": device_ms(torch, run_c)[0], "earlier_ms": device_ms(torch, run_e)[0],
+        "earlier_event_ms": event_ms(torch, run_e, iters=50),
+        "plain_ms": device_ms(torch, run_p, iters=5)[0], "library_ms": device_ms(torch, run_l, iters=5)[0],
+        "bound_ms": max(nbytes / PEAK_HBM_BYTES, flop / PEAK_FP32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / PEAK_HBM_BYTES > flop / PEAK_FP32_FLOPS else "operations",
+        "bytes": nbytes, "flop": flop,
+        "composed": "K4 per pair (dense_tile_fused.cu epilogue a, with the mask) + engine.compact_mask, "
+                    "device time per call",
+        "earlier": "the step this kernel replaced: K4's tile_eval.cuh kernel (dense_tile.cu) + "
+                   "engine.compact_mask, device time per call (earlier_event_ms: CUDA events, 50 calls)",
+        "library": "the baddbmm yardstick's mask + engine.compact_mask",
+    }
+    emit({"phase": "dense_steps_real_width", "timing": "torch.profiler device time (count: per launch of 20, "
+          "the mean over the records kept; pairs: the sum of its two passes' per-launch means), per call "
+          "(composed, earlier: 20; plain, library: 5); event_ms: CUDA events over 50 back-to-back bound calls, "
+          "host time included", "steps": rows, "smi": smi_sample()})
+    return rows
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -991,7 +1375,14 @@ def phase_count(torch, np, engine, d, host_s):
     return rec
 
 
-def phase_pairs(torch, np, engine, d, dense_cfg, self_join):
+def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
+    """CoocTexture: the indexed tier's count and pairs, then the dense
+    tier's (``dense_engine``, built beforehand: its host plan took
+    ``dense_host_s``), whose count must launch the fused count kernel once
+    per chunk and nothing else, and whose pairs the fused pairs kernel twice
+    per chunk and nothing else but the result-size estimate's K3."""
+    from repro_torch.kernels import dense_tile, distance_tile
+
     t0 = time.perf_counter()
     rc = engine.count()
     count_s = time.perf_counter() - t0
@@ -1006,14 +1397,33 @@ def phase_pairs(torch, np, engine, d, dense_cfg, self_join):
     rev = torch.sort(pr[:, 1] * n + pr[:, 0]).values
     check(torch.equal(fwd, rev), "pair set is not symmetric")
     check(int(torch.unique_consecutive(fwd).numel()) == fwd.numel(), "duplicate pairs")
+
+    def launched(before):
+        return {k: v - before[k] for k, v in {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}.items()}
+
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rd = self_join(d, dense_cfg)
+    rd = dense_engine.count()
     dense_s = time.perf_counter() - t0
+    count_launches = launched(before)
+    check(count_launches == {k: rd.stats.num_chunks if k == "dense_count_scatter" else 0 for k in count_launches},
+          f"the dense count ran {rd.stats.num_chunks} chunks and launched {count_launches}")
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     t0 = time.perf_counter()
-    rdp = self_join(d, dense_cfg, return_pairs=True)
+    rdp = dense_engine.pairs()
     dense_pairs_s = time.perf_counter() - t0
+    pairs_launches = launched(before)
+    est = pairs_launches["dense_tile_distance"]  # the result-size estimate's K3 (ops.tile_counts chunks)
+    check(est > 0 and pairs_launches == {
+        k: 2 * rdp.stats.num_device_dispatches if k == "dense_pairs_compact" else est if k == "dense_tile_distance"
+        else 0 for k in pairs_launches},
+        f"the dense pairs ran {rdp.stats.num_device_dispatches} chunks and launched {pairs_launches}")
     check(np.array_equal(rdp.counts, rd.counts), "dense pairs() counts != dense count()")
     check(rdp.pairs.shape == (rd.stats.num_results, 2), "dense pairs count != dense count() sum")
+    dp = torch.from_numpy(rdp.pairs).cuda().long()
+    check(torch.equal(torch.sort(dp[:, 0] * n + dp[:, 1]).values, torch.sort(dp[:, 1] * n + dp[:, 0]).values),
+          "the dense pair set is not symmetric")
     diff = np.nonzero(rd.counts != rc.counts)[0]
     if diff.size:  # allowed only at the eps boundary (raw fp32 data)
         lo, hi = count_bounds(torch, torch.from_numpy(d).cuda(), diff, COOC_EPS)
@@ -1023,10 +1433,14 @@ def phase_pairs(torch, np, engine, d, dense_cfg, self_join):
     rec = {
         "phase": "pairs", "dataset": "CoocTexture", "points": int(n), "dims": int(d.shape[1]),
         "eps": COOC_EPS, "results": rc.stats.num_results, "tile_pairs": rc.stats.num_tile_pairs_evaluated,
-        "count_s": count_s, "pairs_s": pairs_s, "dense_count_s": dense_s,
+        "count_s": count_s, "pairs_s": pairs_s,
         "overflow_retries": rp.stats.overflow_retries, "pairs_capacity": rp.stats.pairs_capacity,
         "pairs_chunks": rp.stats.num_chunks, "pairs_dispatches": rp.stats.num_device_dispatches,
+        "dense_host_plan_s": dense_host_s, "dense_count_s": dense_s, "dense_count_chunks": rd.stats.num_chunks,
+        "dense_count_launches": {k: v for k, v in count_launches.items() if v},
         "dense_pairs_s": dense_pairs_s, "dense_overflow_retries": rdp.stats.overflow_retries,
+        "dense_pairs_capacity": rdp.stats.pairs_capacity, "dense_pairs_dispatches": rdp.stats.num_device_dispatches,
+        "dense_pairs_launches": {k: v for k, v in pairs_launches.items() if v},
         "dense_tile_pairs": rd.stats.num_tile_pairs_evaluated, "dense_execution": rd.stats.execution,
         "dense_vs_indexed_boundary_diffs": int(diff.size),
     }
@@ -1034,32 +1448,87 @@ def phase_pairs(torch, np, engine, d, dense_cfg, self_join):
     return rec
 
 
-def phase_profile(torch, engine, n_chunks=400):
-    """Where a count chunk's time goes on the main path: a window of
-    Syn16D2M count chunks run as ``SelfJoinEngine.count`` runs them (one
-    bound step, one span per chunk), timed by the host clock and by CUDA
-    events, then under torch.profiler.  The count step must launch K1's
-    fused kernel and nothing else: no ``index_add_``, no mask kernels."""
+def phase_wide_dense(torch, np, SelfJoinConfig, SelfJoinEngine, paper_dataset):
+    """The dense tier's general path on real work: Syn64D2M at 200,000 x 64
+    (two real dim blocks), execution="dense", counts at each of WIDE_EPS
+    (at 0.1 each point's only neighbour is itself; 0.2 gives thousands);
+    at each, the cost model's choice under execution="auto" with both
+    costs, 256 sampled counts against the float64 brute force, and the
+    indexed tier's counts against the dense ones, both within the boundary
+    band.  Host plans (the snapshot at each radius) are timed apart from
+    the device parts."""
+    from repro_torch.core import cost as cost_mod
+    from repro_torch.kernels import dense_tile
+
+    d = paper_dataset("Syn64D2M", WIDE_N / 2_000_000)
+    engines = {}
+    rec = {"phase": "wide_dense", "dataset": "Syn64D2M", "points": int(d.shape[0]), "dims": int(d.shape[1]),
+           "cut": "200,000 of 2,000,000 points (paper_dataset scale 0.1)", "eps": {}}
+    for eps in WIDE_EPS:
+        out = {}
+        for tier in ("dense", "indexed"):
+            t0 = time.perf_counter()
+            if tier not in engines:
+                engines[tier] = SelfJoinEngine(d, SelfJoinConfig(eps=eps, execution=tier))
+            eng = engines[tier]
+            eng.resolve_execution(eps)  # the snapshot at this radius (a host plan)
+            if tier == "dense":
+                eng.snapshot.dense_tables().chunks(eng.engine.count_chunk)
+            host_s = time.perf_counter() - t0
+            before = dict(dense_tile.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.count(eps)
+            torch.cuda.synchronize()
+            device_s = time.perf_counter() - t0
+            out[tier] = res
+            st = res.stats
+            rec["eps"].setdefault(str(eps), {}).update({
+                f"{tier}_host_plan_s": host_s, f"{tier}_count_s": device_s,
+                f"{tier}_tile_pairs": st.num_tile_pairs_evaluated, f"{tier}_chunks": st.num_chunks})
+            if tier == "dense":
+                grew = {k: v - before[k] for k, v in dense_tile.LAUNCHES.items()}
+                check(grew == {k: st.num_chunks if k == "dense_count_scatter" else 0 for k in grew},
+                      f"the Syn64D2M dense count ran {st.num_chunks} chunks and launched {grew}")
+                dt = eng.snapshot.dense_tables()
+                n_checked, bad = spot_check(torch, np, d, res.counts, eps)
+                check(bad == 0, f"Syn64D2M eps={eps}: {bad} of {n_checked} sampled dense counts off")
+                auto = cost_mod.decide(st.cost_indexed, st.cost_dense, "auto")
+                rec["eps"][str(eps)].update({
+                    "results": st.num_results, "mean_neighbours": st.num_results / d.shape[0],
+                    "tiles": int(dt.plan.num_tiles), "real_tile_bytes": int(dt.plan.num_tiles) * 64 * int(
+                        eng.n_pad) * 4, "allocated_tile_bytes": int(dt.tiles.numel() * 4),
+                    "n_pad": int(eng.n_pad), "dim_blocks": int(eng.snapshot.num_dim_blocks),
+                    "launches": {k: v for k, v in grew.items() if v}, "auto_execution": auto.execution,
+                    "cost_indexed": st.cost_indexed, "cost_dense": st.cost_dense,
+                    "spot_checked": n_checked, "spot_bad": bad})
+        diff = np.nonzero(out["indexed"].counts != out["dense"].counts)[0]
+        if diff.size:
+            lo, hi = count_bounds(torch, torch.from_numpy(d).cuda(), diff, eps)
+            for got in (out["indexed"].counts[diff], out["dense"].counts[diff]):
+                check(bool(((got >= lo) & (got <= hi)).all()),
+                      f"Syn64D2M eps={eps}: dense and indexed counts differ beyond the eps boundary")
+        rec["eps"][str(eps)]["dense_vs_indexed_boundary_diffs"] = int(diff.size)
+    emit(rec)
+    return rec
+
+
+def profile_window(torch, device, window, step, span, kernel, label):
+    """A window of chunks run as the engine runs them (one bound step, one
+    ``span`` per chunk), timed by the host clock and by CUDA events, then
+    under torch.profiler.  Fails unless ``kernel`` (a device kernel name) is
+    the only thing that ran on the card: no ``cumsum``, ``searchsorted``,
+    ``index_copy_``, ``index_add_`` or mask kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import obs
-    from repro_torch.core.engine import count_step
-    from repro_torch.kernels import ops
 
-    snap, cfg = engine.snapshot, engine.config
-    chunks = snap.chunks(engine.engine.count_chunk)
-    window = chunks[len(chunks) // 2: len(chunks) // 2 + n_chunks]
-    counts = torch.zeros(snap.num_points + 1, dtype=torch.int32, device="cuda")
-    skipped = torch.zeros((), dtype=torch.int32, device="cuda")
-    step = count_step(counts, skipped, snap.tiles, snap.tile_len, snap.tile_start, cfg.eps,
-                      dim_block=cfg.dim_block, shortc=cfg.shortc,
-                      backend=ops.backend_name("indexed", cfg.use_pallas), num_dims=snap.num_dims)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def run():
-        with torch.cuda.device(snap.device):
+        with torch.cuda.device(device):
             for pa, pb, real in window:
-                with obs.span("engine.count.chunk", "dispatch"):
+                with obs.span(span, "dispatch"):
                     step(pa, pb, real)
         torch.cuda.synchronize()
 
@@ -1073,25 +1542,70 @@ def phase_profile(torch, engine, n_chunks=400):
     events_ms = start.elapsed_time(end) / len(window)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
-    by_name, k1_records = {}, 0
+    by_name, records = {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", None)
         if us is None:
             us = evt.cuda_time_total
         if us > 0:
-            key = "K1 " + K1_KERNEL if K1_KERNEL in evt.key else evt.key[:60]
+            key = evt.key[:80]
             by_name[key] = by_name.get(key, 0.0) + us / len(window) / 1e3
-            if K1_KERNEL in evt.key:
-                k1_records += evt.count
-    check(by_name, "torch.profiler recorded no device time in the profile phase")
-    check(list(by_name) == ["K1 " + K1_KERNEL], f"the count step launched other kernels: {sorted(by_name)}")
+            if kernel in evt.key:
+                records += evt.count
+    check(by_name, f"torch.profiler recorded no device time in the {label} window")
+    check(all(kernel in k for k in by_name), f"the {label} step launched other kernels: {sorted(by_name)}")
     device = sum(by_name.values())
-    rec = {
-        "phase": "profile", "chunks": len(window), "wall_ms_per_chunk": wall_ms,
-        "events_ms_per_chunk": events_ms, "device_ms_per_chunk": device,
-        "device_busy_share": device / wall_ms if wall_ms else None, "k1_records": k1_records,
-        "kernels_ms_per_chunk": by_name, "smi": smi_sample(),
+    return {
+        "chunks": len(window), "wall_ms_per_chunk": wall_ms, "events_ms_per_chunk": events_ms,
+        "device_ms_per_chunk": device, "device_busy_share": device / wall_ms if wall_ms else None,
+        "kernel_records": records, "kernels_ms_per_chunk": by_name, "smi": smi_sample(),
     }
+
+
+def phase_profile(torch, engine, dense_engine, n_chunks=400):
+    """Where a chunk's time goes on the main path: a window of Syn16D2M
+    count chunks (K1's fused kernel only), of CoocTexture's dense count
+    chunks and of its dense pairs chunks (K3 / K4's fused kernel only: one
+    launch per count chunk, two per pairs chunk), each run as the engine
+    runs it (``profile_window``)."""
+    from repro_torch.core.engine import count_step, pairs_step
+    from repro_torch.kernels import ops
+
+    def middle(chunks):
+        return chunks[max(0, len(chunks) // 2 - n_chunks // 2):][:n_chunks]
+
+    snap, cfg, eng = engine.snapshot, engine.config, engine.engine
+    counts = torch.zeros(snap.num_points + 1, dtype=torch.int32, device="cuda")
+    skipped = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = count_step(counts, skipped, snap.tiles, snap.tile_len, snap.tile_start, cfg.eps,
+                      dim_block=cfg.dim_block, shortc=cfg.shortc,
+                      backend=ops.backend_name("indexed", cfg.use_pallas), num_dims=snap.num_dims)
+    rec = {"phase": "profile", "syn16d2m_count": profile_window(
+        torch, snap.device, middle(snap.chunks(eng.count_chunk)), step, "engine.count.chunk", K1_KERNEL,
+        "Syn16D2M count")}
+
+    snap, cfg, eng = dense_engine.snapshot, dense_engine.config, dense_engine.engine
+    dt = snap.dense_tables()
+    counts = torch.zeros(snap.num_points + 1, dtype=torch.int32, device="cuda")
+    step = count_step(counts, skipped, dt.tiles, dt.tile_len, dt.tile_start, cfg.eps, dim_block=cfg.dim_block,
+                      shortc=False, backend="dense", num_dims=snap.num_dims)
+    rec["cooc_dense_count"] = profile_window(torch, snap.device, middle(dt.chunks(eng.count_chunk)), step,
+                                             "engine.count.chunk", DENSE_KERNEL, "CoocTexture dense count")
+    # every chunk's hits land (hit_cap = the most a chunk can hold); the
+    # window's first run lands below cap, the later ones in the padding
+    t = dt.tiles.shape[1]
+    hit_cap = eng.pairs_chunk * t * t
+    buf = torch.zeros((snap.num_points * 600 + hit_cap, 2), dtype=torch.int32, device="cuda")
+    offset = torch.zeros((), dtype=torch.int32, device="cuda")
+    max_hits = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = pairs_step(buf, offset, max_hits, dt.tiles, dt.tile_len, dt.tile_start, snap.point_order, cfg.eps,
+                      hit_cap=hit_cap, dim_block=cfg.dim_block, backend="dense", chunk=eng.pairs_chunk,
+                      num_dims=snap.num_dims)
+    window = middle(dt.chunks(eng.pairs_chunk))
+    rec["cooc_dense_pairs"] = profile_window(torch, snap.device, window, step, "engine.pairs.chunk", DENSE_KERNEL,
+                                             "CoocTexture dense pairs")
+    rec["cooc_dense_pairs"]["hits_per_chunk"] = int(offset) / (3 * len(window))
+    del buf
     emit(rec)
     return rec
 
@@ -1104,7 +1618,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        from repro_torch.core import SelfJoinConfig, SelfJoinEngine, self_join
+        from repro_torch.core import SelfJoinConfig, SelfJoinEngine
         from repro_torch.data import paper_dataset
         from repro_torch.kernels import _build, dense_tile, distance_tile, flash_attention
     except ImportError as exc:
@@ -1118,6 +1632,7 @@ def main() -> int:
     fns = kernel_fns()
     emit({"phase": "kernels_sweep", **phase_sweep(torch, np, fns)})
     phase_k1_sweep(torch, np)
+    phase_dense_sweep(torch, np)
     phase_attention_sweep(torch, np, flash_attention)
 
     # main-path inputs: build the phase-3 and phase-4 engines (host plans)
@@ -1129,9 +1644,16 @@ def main() -> int:
     cooc = paper_dataset("CoocTexture", 1.0)
     cooc_cfg = SelfJoinConfig(eps=COOC_EPS)
     cooc_engine = SelfJoinEngine(cooc, cooc_cfg)
+    t0 = time.perf_counter()
+    dense_engine = SelfJoinEngine(cooc, dataclasses.replace(cooc_cfg, execution="dense"))
+    cooc_dense = dense_engine.snapshot.dense_tables()
+    for size in (dense_engine.engine.count_chunk, dense_engine.engine.pairs_chunk):
+        cooc_dense.chunks(size)
+    dense_host_s = time.perf_counter() - t0
     emit({"phase": "plans", "syn16d2m_host_plan_s": syn_host_s,
           "syn16d2m_tile_pairs": syn_engine.plan.num_pairs,
-          "cooc_tile_pairs": cooc_engine.plan.num_pairs})
+          "cooc_tile_pairs": cooc_engine.plan.num_pairs, "cooc_dense_host_plan_s": dense_host_s,
+          "cooc_dense_tile_pairs": cooc_dense.plan.num_pairs})
 
     def chunk_of(snap_tables, plan, size, d):
         mid = max(0, min(plan.num_pairs - size, plan.num_pairs // 2))
@@ -1141,7 +1663,6 @@ def main() -> int:
 
     syn_snap = syn_engine.snapshot
     cooc_snap = cooc_engine.snapshot
-    cooc_dense = cooc_snap.dense_tables()
     db = syn_cfg.dim_block
     eng_cfg = syn_engine.engine
     inputs = {
@@ -1158,8 +1679,12 @@ def main() -> int:
     syn_tiles, syn_lens, syn_pa, syn_pb, syn_n = chunk_of(syn_snap, syn_snap.plan, eng_cfg.count_chunk, syn)
     fused = phase_fused_step(torch, syn_tiles, syn_lens, syn_snap.tile_start, syn_snap.num_points,
                              syn_pa, syn_pb, syn_n, SYN_EPS, db, syn_cfg.shortc, "Syn16D2M indexed chunk")
+    steps = phase_dense_steps(
+        torch, (cooc_dense.tiles, cooc_dense.tile_len, cooc_dense.tile_start), cooc_snap.point_order,
+        cooc_snap.num_points, inputs["dense_tile_distance"][2:4], inputs["dense_tile_distance_mask"][2:4],
+        int(cooc.shape[1]), COOC_EPS, db, "CoocTexture dense chunk")
     attn = phase_attention(torch, np, flash_attention)
-    phase_profile(torch, syn_engine)  # before the main path: no profiler session after it
+    phase_profile(torch, syn_engine, dense_engine)  # before the main path: no profiler session after it
 
     # the main path: counters from 0, phases 3 and 4, counters read after
     for mod in (distance_tile, dense_tile):
@@ -1169,11 +1694,13 @@ def main() -> int:
     after_count = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     check(after_count == {k: count["chunks"] if k == SCATTER[0] else 0 for k in after_count},
           f"phase 3 ran {count['chunks']} chunks and launched {after_count}: not the fused K1 once per chunk")
-    dense_cfg = dataclasses.replace(cooc_cfg, execution="dense")
-    phase_pairs(torch, np, cooc_engine, cooc, dense_cfg, self_join)
+    phase_pairs(torch, np, cooc_engine, cooc, dense_engine, dense_host_s)
+    phase_wide_dense(torch, np, SelfJoinConfig, SelfJoinEngine, paper_dataset)
     launches = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     emit({"phase": "launches", "phase_3": after_count, "phases_3_4": launches})
-    check(launches.pop("tile_pair_distance_tile_eval") == 0, "the main path launched K1's earlier kernel")
+    for name in ("tile_pair_distance_tile_eval", "dense_tile_distance_tile_eval", "dense_tile_distance_mask"):
+        # the earlier kernels, and K4 per pair: the dense pairs step runs epilogue (c) instead
+        check(launches.pop(name) == 0, f"the main path launched {name}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
 
@@ -1182,10 +1709,11 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": real[name]["max_abs_err"],
          "ms": real[name]["ms"], "plain_ms": real[name]["plain_ms"],
          "bound_ms": real[name]["bound_ms"], "bound_by": real[name]["bound_by"],
-         "library_ms": real[name]["library_ms"], "timing": "torch.profiler"}
-        for name in TILE_KERNELS
+         "library_ms": real[name]["library_ms"], "timing": "torch.profiler",
+         **({"earlier_ms": real[name]["earlier_ms"], "earlier": real[name]["earlier"]}
+            if "earlier_ms" in real[name] else {})}
+        for name in ("tile_pair_distance", "tile_pair_distance_mask", "dense_tile_distance")
     ]
-    rows[0].update(earlier_ms=real["tile_pair_distance"]["earlier_ms"], earlier=real["tile_pair_distance"]["earlier"])
     rows.insert(1, {
         "name": SCATTER[0], "route": "cuda", "source": SCATTER[1], "replaces": SCATTER[2],
         "launches": launches[SCATTER[0]], "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
@@ -1193,6 +1721,14 @@ def main() -> int:
         "library_ms": fused["library_ms"], "earlier_ms": fused["earlier_ms"], "earlier": fused["earlier"],
         "timing": "torch.profiler",
     })
+    for name, (source, replaces) in DENSE_STEPS.items():
+        s = steps[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"], "earlier_ms": s["earlier_ms"],
+            "earlier": s["earlier"], "timing": "torch.profiler",
+        })
     rows.append(attention_row(attn))
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,10 @@ def estimate_result_size(
     backend: str,
     sample_frac: float = 0.01,
     seed: int = 0,
+    num_dims=None,
 ) -> int:
-    """Estimated |R| from a sample of candidate tile pairs (counts only)."""
+    """Estimated |R| from a sample of candidate tile pairs (counts only);
+    ``num_dims`` as in ``ops.eval_tile_pairs``."""
     p = plan.num_pairs
     if p == 0:
         return 0
@@ -35,7 +37,7 @@ def estimate_result_size(
     sel = rng.choice(p, size=n_sample, replace=False)
     counts, _ = ops.tile_counts(
         tiles_pts, tile_len, plan.pair_a[sel], plan.pair_b[sel],
-        eps=eps, dim_block=dim_block, shortc=True, backend=backend,
+        eps=eps, dim_block=dim_block, shortc=True, backend=backend, num_dims=num_dims,
     )
     return int(round(float(counts.sum()) * (p / n_sample)))
 

@@ -8,12 +8,15 @@ in the paper; everything downstream runs on the snapshot's device:
   evaluation   -- the tile kernels (K1/K2 indexed with SHORTC, K3/K4
                   dense), eps a runtime argument;
   count scatter-- per-point counts accumulate into the grid-sorted counts
-                  vector, in place: on the card the indexed tier's K1
-                  scatters them itself (one launch per chunk); the dense
-                  tier and the CPU use ``index_add_``;
-  pairs        -- rank-select compaction over the hit mask into a
-                  preallocated buffer, in place, with the exact overflow
-                  accounting of the JAX package.
+                  vector, in place: on the card K1 (indexed) and K3 (dense)
+                  scatter them themselves, one launch per chunk; the CPU
+                  uses ``index_add_``;
+  pairs        -- compaction of the hits into a preallocated buffer, in
+                  place, with the exact overflow accounting of the JAX
+                  package: on the card the dense tier's K4 writes them
+                  itself (two launches per chunk, no mask in device
+                  memory); the indexed tier and the CPU run the rank-select
+                  over the hit mask.
 
 The candidate tile-pair list runs in fixed-size zero-padded chunks of the
 same sizes as in the JAX package, so chunk counts, dispatch counts, the
@@ -41,7 +44,7 @@ from repro_torch.core.types import (
     SelfJoinResult,
     SelfJoinStats,
 )
-from repro_torch.kernels import distance_tile, ops
+from repro_torch.kernels import dense_tile, distance_tile, ops
 
 _MAX_AUTO_GROW = 8  # doublings before giving up on an auto-sized buffer
 
@@ -67,11 +70,12 @@ def count_chunk_step(
     """One counts-mode chunk: evaluate + scatter-add, in place.
 
     The indexed tier (``"pallas"`` / ``"jnp"``) is one call of
-    ``distance_tile.tile_pair_count_scatter`` (on the card one launch that
-    scatters its own counts); the dense tier evaluates with K3 and scatters
-    with ``distance_tile.scatter_counts``, where
-    ``counts.at[idx].add(..., mode="drop")`` of the JAX package becomes an
-    ``index_add_`` whose invalid lanes land in the sink row ``N``.
+    ``distance_tile.tile_pair_count_scatter``, the dense tier one of
+    ``dense_tile.dense_count_scatter`` (which adds no skipped blocks): on
+    the card each is one launch that scatters its own counts; on the CPU
+    the plain version, whose ``index_add_`` takes the place of
+    ``counts.at[idx].add(..., mode="drop")`` of the JAX package, invalid
+    lanes adding 0 to the sink row ``N``.
     """
     if backend in ("pallas", "jnp"):
         distance_tile.tile_pair_count_scatter(
@@ -79,11 +83,11 @@ def count_chunk_step(
             dim_block=dim_block, shortc=shortc, num_dims=num_dims,
         )
         return
-    counts, skipped = ops.eval_tile_pairs(
-        tiles, tile_len, pa, pb, eps,
-        dim_block=dim_block, shortc=shortc, backend=backend,
+    if backend not in ("dense", "dense_jnp"):
+        raise ValueError(f"unknown backend {backend!r}; expected one of {ops.BACKENDS}")
+    dense_tile.dense_count_scatter(
+        counts_sorted, tiles, tile_len, tile_start, pa, pb, real, eps, dim_block=dim_block, num_dims=num_dims,
     )
-    distance_tile.scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_start, pa, real)
 
 
 def count_step(
@@ -93,17 +97,23 @@ def count_step(
     """``step(pa, pb, real)``: the count chunk step bound to one pass's
     state, the engine's one entry to it.
 
-    On the card the indexed tier binds the fused kernel once
-    (a ``distance_tile.CountScatter``: tables checked, kernel and stream
-    looked up), so a chunk costs one launch and no other host work; the
-    caller keeps the tables' device current.  The dense tier and the CPU
-    call ``count_chunk_step``.  Reads only the backend and the device.
+    On the card each tier binds its fused kernel once (a
+    ``distance_tile.CountScatter`` indexed, a ``dense_tile.DenseCountScatter``
+    dense: tables checked, kernel and stream looked up), so a chunk costs
+    one launch and no other host work; the caller keeps the tables' device
+    current.  The CPU calls ``count_chunk_step``.  Reads only the backend
+    and the device.
     """
-    if backend in ("pallas", "jnp") and tiles.device.type == "cuda":
-        return distance_tile.CountScatter(
-            counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
-            dim_block=dim_block, shortc=shortc, num_dims=num_dims,
-        )
+    if tiles.device.type == "cuda":
+        if backend in ("pallas", "jnp"):
+            return distance_tile.CountScatter(
+                counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
+                dim_block=dim_block, shortc=shortc, num_dims=num_dims,
+            )
+        if backend in ("dense", "dense_jnp"):
+            return dense_tile.DenseCountScatter(
+                counts_sorted, tiles, tile_len, tile_start, eps, dim_block=dim_block, num_dims=num_dims,
+            )
 
     def step(pa, pb, real):
         count_chunk_step(
@@ -143,7 +153,13 @@ def pairs_chunk_step(
         tiles, tile_len, pa, pb, eps,
         dim_block=dim_block, shortc=True, backend=backend, return_mask=True,
     )
-    t = tiles.shape[1]
+    compact_mask(buf, offset, max_chunk_hits, mask, tile_start, point_order, pa, pb, real, hit_cap=hit_cap)
+
+
+def compact_mask(buf, offset, max_chunk_hits, mask, tile_start, point_order, pa, pb, real, *, hit_cap) -> None:
+    """``pairs_chunk_step``'s compaction of an evaluated chunk's hit mask
+    ``(C, T, T) int8`` into ``buf``, in place (the rank-select above)."""
+    t = mask.shape[1]
     c = pa.shape[0]
     dev = buf.device
     cap = buf.shape[0] - hit_cap
@@ -170,6 +186,36 @@ def pairs_chunk_step(
 
     offset += nh
     torch.maximum(max_chunk_hits, nh, out=max_chunk_hits)
+
+
+def pairs_step(
+    buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps,
+    *, hit_cap, dim_block, backend, chunk, num_dims=None,
+) -> Callable[[torch.Tensor, torch.Tensor, int], None]:
+    """``step(pa, pb, real)``: the pairs chunk step bound to one pass's
+    state (``buf``, ``offset``, ``max_chunk_hits`` at ``hit_cap``), the
+    engine's one entry to it.
+
+    On the card the dense tier binds its fused kernel once (a
+    ``dense_tile.DensePairsCompact`` for chunks of up to ``chunk`` pairs):
+    a chunk costs two launches, which write its hits into ``buf`` in the
+    reference's order with no mask in device memory.  The indexed tier and
+    the CPU call ``pairs_chunk_step``.  Reads only the backend and the
+    device.
+    """
+    if tiles.device.type == "cuda" and backend in ("dense", "dense_jnp"):
+        return dense_tile.DensePairsCompact(
+            buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps,
+            hit_cap=hit_cap, chunk=chunk, dim_block=dim_block, num_dims=num_dims,
+        )
+
+    def step(pa, pb, real):
+        pairs_chunk_step(
+            buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, pa, pb, real, eps,
+            hit_cap=hit_cap, dim_block=dim_block, backend=backend,
+        )
+
+    return step
 
 
 def _unsort_counts(counts_sorted, point_order):
@@ -457,20 +503,20 @@ class SelfJoinEngine:
             buf = torch.zeros((cap + hit_cap, 2), dtype=torch.int32, device=dev)
             offset = torch.zeros((), dtype=torch.int32, device=dev)
             max_hits = torch.zeros((), dtype=torch.int32, device=dev)
+            step = pairs_step(
+                buf, offset, max_hits, tiles, tile_len, tile_start, snap.point_order, eps,
+                hit_cap=hit_cap, dim_block=cfg.dim_block, backend=backend,
+                chunk=eng.pairs_chunk, num_dims=snap.num_dims,
+            )
+            on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
             with obs.span(
                 "engine.pairs", "join",
                 n=snap.num_points, eps=eps, tier=dec.execution,
                 attempt=retries,
-            ):
+            ), on_card:
                 for pa, pb, real in chunks(eng.pairs_chunk):
                     with obs.span("engine.pairs.chunk", "dispatch"):
-                        pairs_chunk_step(
-                            buf, offset, max_hits,
-                            tiles, tile_len, tile_start,
-                            snap.point_order, pa, pb, real, eps,
-                            hit_cap=hit_cap, dim_block=cfg.dim_block,
-                            backend=backend,
-                        )
+                        step(pa, pb, real)
                     stats.num_chunks += 1
                     dispatches += 1
                 num = int(offset)
@@ -528,7 +574,7 @@ class SelfJoinEngine:
         est = batching_mod.estimate_result_size(
             tiles, tile_len, plan, eps=eps,
             dim_block=cfg.dim_block, backend=backend,
-            sample_frac=cfg.sample_frac,
+            sample_frac=cfg.sample_frac, num_dims=self.snapshot.num_dims,
         )
         return batching_mod.suggest_pairs_capacity(est, eng.pairs_headroom)
 

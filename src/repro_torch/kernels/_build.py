@@ -28,12 +28,13 @@ from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("distance_tile", "distance_tile_counts", "dense_tile", "flash_attention", "flash_attention_wgmma")
+SOURCES = ("distance_tile", "distance_tile_counts", "dense_tile", "dense_tile_fused", "flash_attention",
+           "flash_attention_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-MAX_TILE = 128  # tile_eval.cuh, distance_tile_counts.cu: kMaxT
+MAX_TILE = 128  # tile_eval.cuh, tile_stage.cuh: kMaxT
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +52,12 @@ SIGNATURES = {
     "dense_tile": {
         "dense_tile_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
         "dense_tile_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    },
+    "dense_tile_fused": {
+        "dense_tile_pair_eval": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P],
+        "dense_tile_count_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P],
+        "dense_tile_pairs_compact": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _I,
+                                     _P],
     },
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],

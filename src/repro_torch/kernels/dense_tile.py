@@ -1,4 +1,4 @@
-"""K3 / K4: dense (unfiltered) tile-pair evaluation, counts and mask mode.
+"""K3 / K4: dense (unfiltered) tile-pair evaluation, and the dense tier's chunk steps.
 
 The port of ``src/repro/kernels/dense_tile.py:dense_tile_distance`` (the
 Pallas TPU kernel, bodies ``_kernel`` and ``_mask_kernel``): the same
@@ -8,54 +8,271 @@ keeps self and duplicate pairs at tiny eps on raw fp32 data.  Same calling
 convention as ``distance_tile.tile_pair_distance``; it returns no
 ``skipped`` (the dense tier skips nothing).
 
-``dense_tile_distance`` launches the CUDA kernel (``csrc/dense_tile.cu``)
-for CUDA tensors and runs ``dense_tile_distance_plain`` -- the blocked twin
-of ``repro.kernels.ops._eval_dense_jnp`` -- for CPU tensors, with no
-fallback between the two.
+Routes, by device only (no fallback between them): CPU tensors run the
+plain versions; CUDA tensors launch ``csrc/dense_tile_fused.cu``, over the
+data's real dims (``num_dims``):
+
+  * ``dense_tile_distance``  -- epilogue (a): counts (K3) and, with
+    ``return_mask``, the (P, T, T) int8 hit mask (K4), per pair;
+  * ``DenseCountScatter``    -- epilogue (b): the dense count chunk step
+    (``repro.core.engine.count_chunk_step`` with a dense backend), one
+    launch that scatters the counts itself;
+  * ``DensePairsCompact``    -- epilogue (c): the dense pairs chunk step
+    (``repro.core.engine.pairs_chunk_step`` with a dense backend), two
+    launches that write the hits into the pair buffer in the reference's
+    order, with no mask in device memory.
+
+The two steps are bound once per pass (tables checked, kernel and stream
+looked up), like ``distance_tile.CountScatter``.  Their plain versions are
+``dense_count_scatter_plain`` (K3's plain version, then ``scatter_counts``)
+and ``dense_pairs_compact_plain`` (per-pair hit totals, an exclusive scan,
+an ordered write: the fused kernel's algorithm, not the reference's
+rank-select).  ``dense_tile_distance_tile_eval`` launches the kernel K3 / K4
+ran before (``csrc/dense_tile.cu``, the ``tile_eval.cuh`` body), for
+comparing the two on the card; nothing on the main path calls it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.distance_tile import blocked_eval, eps_squared
+from repro_torch.kernels.distance_tile import (
+    K1_MAX_SMEM,
+    K1_SLAB,
+    _dims,
+    _k1_pitch,
+    blocked_eval,
+    check_chunk,
+    check_step_tables,
+    eps_squared,
+    scatter_counts,
+)
 
-# kernel launches made by dense_tile_distance, by kernel (reset by callers)
-LAUNCHES = {"dense_tile_distance": 0, "dense_tile_distance_mask": 0}
+# kernel launches, by kernel (reset by callers): each wrapper counts its own
+LAUNCHES = {
+    "dense_tile_distance": 0,            # K3, csrc/dense_tile_fused.cu epilogue (a)
+    "dense_tile_distance_mask": 0,       # K4, csrc/dense_tile_fused.cu epilogue (a) with the mask
+    "dense_count_scatter": 0,            # K3 + the dense count chunk step, epilogue (b)
+    "dense_pairs_compact": 0,            # K4 + the dense pairs chunk step, epilogue (c): two per step
+    "dense_tile_distance_tile_eval": 0,  # K3 / K4's earlier kernel, csrc/dense_tile.cu
+}
 
 
-def dense_tile_distance_plain(tiles, tile_len, pair_a, pair_b, *, eps, dim_block, return_mask=False):
+def dense_tile_distance_plain(tiles, tile_len, pair_a, pair_b, *, eps, dim_block, return_mask=False,
+                              num_dims=None):
     """Plain PyTorch version of K3 (counts) / K4 (``return_mask``)."""
     res = blocked_eval(
         tiles, tile_len, pair_a, pair_b, eps_squared(eps),
-        dim_block=dim_block, shortc=False, clamp=True, return_mask=return_mask,
+        dim_block=dim_block, shortc=False, clamp=True, return_mask=return_mask, num_dims=num_dims,
     )
     return (res[0], res[2]) if return_mask else (res[0],)
 
 
-def dense_tile_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False):
+def dense_staging(t, num_dims) -> int:
+    """How ``dense_tile_fused.cu`` stages tiles (its ``choose_staging``, by
+    shape only): 0 where an A tile and two B tiles of whole rows, with two
+    sets of row norms, fit in a block's shared memory, else ``K1_SLAB``, the
+    width of the slices it stages instead."""
+    rs = 16 * (1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8)
+    whole = (3 * rs * _k1_pitch(num_dims) + 4 * rs + 10) * 4
+    return 0 if whole <= K1_MAX_SMEM else K1_SLAB
+
+
+def _fn(symbol):
+    return _build.function("dense_tile_fused", symbol)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dense_tile_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False, num_dims=None,
+                        max_ctas=0):
     """Evaluate every listed tile pair densely (K3, or K4 with ``return_mask``).
 
-    Returns ``(counts (P,T) int32,)`` or ``(counts, mask (P,T,T) int8)``.  A
-    CUDA ``tiles`` launches the CUDA kernel (T <= 128); a CPU ``tiles`` runs
-    the plain version.
+    Returns ``(counts (P,T) int32,)`` or ``(counts, mask (P,T,T) int8)``.
+    ``num_dims`` (default ``n_pad``) is the data's dimension count, the dims
+    past it being zero padding.  A CUDA ``tiles`` launches epilogue (a) of
+    ``csrc/dense_tile_fused.cu`` (T <= 128; ``max_ctas > 0`` caps its
+    persistent grid, changing no result); a CPU ``tiles`` runs the plain
+    version.
     """
-    n_pad = tiles.shape[2]
-    if n_pad % dim_block:
-        raise ValueError(f"n_pad={n_pad} not a multiple of dim_block={dim_block}")
+    n = _dims(tiles, dim_block, num_dims)
     if tiles.device.type == "cpu":
         return dense_tile_distance_plain(
             tiles, tile_len, pair_a, pair_b,
-            eps=eps, dim_block=dim_block, return_mask=return_mask,
+            eps=eps, dim_block=dim_block, return_mask=return_mask, num_dims=n,
         )
     if tiles.device.type != "cuda":
         raise ValueError(f"dense_tile_distance runs on cpu or cuda tensors, not {tiles.device}")
+    _build.check_tile_args(tiles, tile_len, pair_a, pair_b)
     p, t = pair_a.shape[0], tiles.shape[1]
-    outs = [torch.empty((p, t), dtype=torch.int32, device=tiles.device)]   # counts
+    counts = torch.empty((p, t), dtype=torch.int32, device=tiles.device)
+    mask = torch.empty((p, t, t), dtype=torch.int8, device=tiles.device) if return_mask else None
+    with torch.cuda.device(tiles.device):
+        err = _fn("dense_tile_pair_eval")(
+            tiles.data_ptr(), tile_len.data_ptr(), pair_a.data_ptr(), pair_b.data_ptr(),
+            p, t, tiles.shape[2], n, dim_block, eps_squared(eps),
+            counts.data_ptr(), mask.data_ptr() if return_mask else None, int(max_ctas), _stream(tiles.device))
+    if err != 0:
+        raise RuntimeError(f"dense_tile_pair_eval: CUDA launch failed with cudaError {err}")
+    LAUNCHES["dense_tile_distance_mask" if return_mask else "dense_tile_distance"] += 1
+    return (counts, mask) if return_mask else (counts,)
+
+
+def dense_tile_distance_tile_eval(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False):
+    """K3 / K4 on CUDA tensors through the ``tile_eval.cuh`` body
+    (``csrc/dense_tile.cu``), all ``n_pad`` dims, one block per pair: the
+    kernel they ran before ``csrc/dense_tile_fused.cu``, kept to compare the
+    two on the same inputs."""
+    _dims(tiles, dim_block, None)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"dense_tile_distance_tile_eval runs on cuda tensors, not {tiles.device}")
+    p, t = pair_a.shape[0], tiles.shape[1]
+    outs = [torch.empty((p, t), dtype=torch.int32, device=tiles.device)]
     if return_mask:
         outs.append(torch.empty((p, t, t), dtype=torch.int8, device=tiles.device))
-    symbol = "dense_tile_mask" if return_mask else "dense_tile_counts"
-    _build.launch_tile_kernel("dense_tile", symbol, tiles, tile_len, pair_a, pair_b,
-                              eps_squared(eps), dim_block, outs)
-    LAUNCHES["dense_tile_distance_mask" if return_mask else "dense_tile_distance"] += 1
+    _build.launch_tile_kernel("dense_tile", "dense_tile_mask" if return_mask else "dense_tile_counts",
+                              tiles, tile_len, pair_a, pair_b, eps_squared(eps), dim_block, outs)
+    LAUNCHES["dense_tile_distance_tile_eval"] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# The dense tier's chunk steps.
+# ---------------------------------------------------------------------------
+
+
+def dense_count_scatter_plain(counts_sorted, tiles, tile_len, tile_start, pa, pb, real, eps, *, dim_block,
+                              num_dims=None):
+    """Plain version of the dense count chunk step, in place: K3's plain
+    version, then ``scatter_counts`` (the dense tier adds no skipped blocks)."""
+    (counts,) = dense_tile_distance_plain(tiles, tile_len, pa, pb, eps=eps, dim_block=dim_block,
+                                          num_dims=num_dims)
+    scatter_counts(counts_sorted, None, counts, None, tile_len, tile_start, pa, real)
+
+
+def dense_pairs_compact_plain(buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, pa, pb,
+                              real, eps, *, hit_cap, dim_block, num_dims=None):
+    """Plain version of the dense pairs chunk step, in place, by the fused
+    kernel's own algorithm: each pair's hit total, their exclusive scan, and
+    every hit written at ``min(offset, cap) + base[p] + (its index among
+    pair p's hits in row-major order)`` where that rank is below ``hit_cap``;
+    then ``offset += hits``, ``max_chunk_hits = max(max_chunk_hits, hits)``.
+    Rows of ``buf`` no hit lands on are left as they were."""
+    counts, mask = dense_tile_distance_plain(tiles, tile_len, pa, pb, eps=eps, dim_block=dim_block,
+                                             return_mask=True, num_dims=num_dims)
+    t = tiles.shape[1]
+    cap = buf.shape[0] - hit_cap
+    pair_hits = counts[:real].sum(1, dtype=torch.int32)
+    base = torch.cumsum(pair_hits, 0, dtype=torch.int32) - pair_hits      # exclusive
+    hits = mask[:real].reshape(real, t * t).bool()
+    p_, flat = hits.nonzero(as_tuple=True)                                 # row-major (p, i, j) order
+    within = torch.cumsum(hits, 1, dtype=torch.int32)[p_, flat] - 1        # rank inside the pair
+    rank = base[p_] + within
+    land = rank < hit_cap
+    p_, flat, rank = p_[land], flat[land], rank[land].long()
+    rows_a = tile_start[pa[p_].long()].long() + flat // t
+    rows_b = tile_start[pb[p_].long()].long() + flat % t
+    block = torch.stack([point_order[rows_a.long()], point_order[rows_b.long()]], dim=1)
+    woff = torch.clamp(offset, max=cap).long()
+    buf.index_copy_(0, woff + rank, block)
+    nh = pair_hits.sum(dtype=torch.int32)
+    offset += nh
+    torch.maximum(max_chunk_hits, nh, out=max_chunk_hits)
+
+
+class DenseCountScatter:
+    """The dense count chunk step bound to one pass's tables on the card.
+
+    ``step(pa, pb, real)`` is one launch of ``dense_tile_count_scatter``
+    (``csrc/dense_tile_fused.cu`` epilogue (b)) on chunk ``(pa, pb)`` (int32,
+    contiguous, on the tables' device; pairs past ``real`` ignored): the
+    count of each valid row goes into ``counts_sorted[tile_start[pa] + r]``
+    (rows at or past N drop).  Holds its tables for as long as it lives; the
+    caller keeps ``tiles``'s device current while it calls.
+    """
+
+    __slots__ = ("_fn", "_tables", "_args", "_tail", "_stream", "_device")
+
+    def __init__(self, counts_sorted, tiles, tile_len, tile_start, eps, *, dim_block, num_dims=None, max_ctas=0):
+        n = check_step_tables("DenseCountScatter", tiles, tile_len, tile_start, dim_block, num_dims,
+                              counts_sorted=counts_sorted)
+        self._fn = _fn("dense_tile_count_scatter")
+        # the kernel keeps raw pointers: the tensors live as long as the step
+        self._tables = (tiles, tile_len, tile_start, counts_sorted)
+        self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr())
+        self._tail = (tiles.shape[1], tiles.shape[2], n, dim_block, eps_squared(eps), counts_sorted.data_ptr(),
+                      counts_sorted.shape[0] - 1, int(max_ctas))
+        self._stream = _stream(tiles.device)
+        self._device = tiles.device
+
+    def __call__(self, pa, pb, real) -> None:
+        check_chunk(pa, pb, real, self._device)
+        if real == 0:
+            return
+        err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
+        if err != 0:
+            raise RuntimeError(f"dense_tile_count_scatter: CUDA launch failed with cudaError {err}")
+        LAUNCHES["dense_count_scatter"] += 1
+
+
+class DensePairsCompact:
+    """The dense pairs chunk step bound to one pass's state on the card.
+
+    ``buf (cap + hit_cap, 2) int32``, ``offset`` and ``max_chunk_hits`` (one
+    int32 each) are the pass's running state, as in
+    ``engine.pairs_chunk_step``; ``chunk`` is the longest chunk the pass
+    will give (the scratch of pass 1 -> pass 2 is sized for it).  Each
+    ``step(pa, pb, real)`` is two launches of ``dense_tile_pairs_compact``
+    (``csrc/dense_tile_fused.cu`` epilogue (c)): the chunk's hits of rank
+    below ``hit_cap`` land in ``buf`` at ``min(offset, cap)`` in the
+    reference's order, and ``offset`` / ``max_chunk_hits`` move on the
+    device.  The caller keeps ``tiles``'s device current while it calls.
+    """
+
+    __slots__ = ("_fn", "_tables", "_args", "_tail", "_stream", "_device", "_chunk")
+
+    def __init__(self, buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps, *, hit_cap,
+                 chunk, dim_block, num_dims=None, max_ctas=0):
+        n = check_step_tables("DensePairsCompact", tiles, tile_len, tile_start, dim_block, num_dims,
+                              buf=buf, offset=offset, max_chunk_hits=max_chunk_hits, point_order=point_order)
+        if buf.dim() != 2 or buf.shape[1] != 2 or not 1 <= hit_cap <= buf.shape[0] or buf.data_ptr() % 8:
+            raise ValueError(f"buf must be (cap + hit_cap, 2) with hit_cap={hit_cap} >= 1, got {tuple(buf.shape)}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        t = tiles.shape[1]
+        scratch = torch.empty(1 + chunk + chunk * t, dtype=torch.int32, device=tiles.device)
+        self._fn = _fn("dense_tile_pairs_compact")
+        self._tables = (tiles, tile_len, tile_start, point_order, buf, offset, max_chunk_hits, scratch)
+        self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr(), point_order.data_ptr())
+        self._tail = (t, tiles.shape[2], n, dim_block, eps_squared(eps), buf.data_ptr(),
+                      buf.shape[0] - hit_cap, int(hit_cap), offset.data_ptr(), max_chunk_hits.data_ptr(),
+                      scratch.data_ptr(), int(max_ctas))
+        self._stream = _stream(tiles.device)
+        self._device = tiles.device
+        self._chunk = chunk
+
+    def __call__(self, pa, pb, real) -> None:
+        check_chunk(pa, pb, real, self._device)
+        if real > self._chunk:
+            raise ValueError(f"real={real} exceeds the bound chunk length {self._chunk}")
+        if real == 0:
+            return
+        err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
+        if err != 0:
+            raise RuntimeError(f"dense_tile_pairs_compact: CUDA launch failed with cudaError {err}")
+        LAUNCHES["dense_pairs_compact"] += 2
+
+
+def dense_count_scatter(counts_sorted, tiles, tile_len, tile_start, pa, pb, real, eps, *, dim_block,
+                        num_dims=None):
+    """One dense count chunk, in place: on CUDA one launch of epilogue (b);
+    on the CPU ``dense_count_scatter_plain``."""
+    if tiles.device.type == "cpu":
+        return dense_count_scatter_plain(counts_sorted, tiles, tile_len, tile_start, pa, pb, real, eps,
+                                         dim_block=dim_block, num_dims=num_dims)
+    _build.check_tile_args(tiles, tile_len, pa, pb)
+    with torch.cuda.device(tiles.device):
+        DenseCountScatter(counts_sorted, tiles, tile_len, tile_start, eps, dim_block=dim_block,
+                          num_dims=num_dims)(pa, pb, real)

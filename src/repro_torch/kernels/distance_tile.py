@@ -242,8 +242,9 @@ def scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_s
     of each valid row ``r < tile_len[pa]`` of each pair ``p < real`` into
     ``counts_sorted[tile_start[pa] + r]`` (``index_add_``; invalid lanes, and
     rows at or past ``N``, add 0 to the sink row ``N``), and the valid pairs' ``skipped`` into
-    ``skipped_tot``.  ``counts.at[idx].add(..., mode="drop")`` of the JAX
-    package (``src/repro/core/engine.py:120-126``)."""
+    ``skipped_tot`` (left alone where ``skipped`` is None, as in the dense
+    tier).  ``counts.at[idx].add(..., mode="drop")`` of the JAX package
+    (``src/repro/core/engine.py:120-126``)."""
     c, t = counts.shape
     dev = pa.device
     n = counts_sorted.shape[0] - 1
@@ -255,7 +256,8 @@ def scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_s
     valid &= idx < n  # rows past N drop, as mode="drop" does
     idx = torch.where(valid, idx, n)
     counts_sorted.index_add_(0, idx.reshape(-1), torch.where(valid, counts, 0).reshape(-1))
-    skipped_tot += torch.where(pair_valid, skipped, 0).sum(dtype=torch.int32)
+    if skipped is not None:
+        skipped_tot += torch.where(pair_valid, skipped, 0).sum(dtype=torch.int32)
 
 
 def tile_pair_count_scatter_plain(counts_sorted, skipped_tot, tiles, tile_len, tile_start, pa, pb, real, eps,
@@ -268,6 +270,40 @@ def tile_pair_count_scatter_plain(counts_sorted, skipped_tot, tiles, tile_len, t
     if not shortc:
         skipped = torch.zeros_like(skipped)
     scatter_counts(counts_sorted, skipped_tot, counts, skipped, tile_len, tile_start, pa, real)
+
+
+def check_step_tables(what, tiles, tile_len, tile_start, dim_block, num_dims, **state):
+    """Validate the tables a fused chunk step binds (``what`` names it in
+    errors): CUDA float32 tiles with their int32 ``tile_len`` and
+    ``tile_start``, and each of ``state`` a contiguous int32 tensor on the
+    same device (``skipped_tot`` and the other scalars holding one value,
+    ``counts_sorted`` (N + 1,)).  Returns ``num_dims`` (default n_pad)."""
+    n = _dims(tiles, dim_block, num_dims)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda tensors, not {tiles.device}")
+    empty = torch.zeros(0, dtype=torch.int32, device=tiles.device)
+    _build.check_tile_args(tiles, tile_len, empty, empty)
+    for name, arg in (("tile_start", tile_start), *state.items()):
+        if arg.dtype != torch.int32 or arg.device != tiles.device or not arg.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {tiles.device}")
+    if tile_start.shape != tile_len.shape:
+        raise ValueError(f"tile_start must match tile_len, got {tuple(tile_start.shape)}")
+    if "counts_sorted" in state and (state["counts_sorted"].dim() != 1 or state["counts_sorted"].shape[0] < 1):
+        raise ValueError("counts_sorted must be (N + 1,)")
+    for name in ("skipped_tot", "offset", "max_chunk_hits"):
+        if name in state and state[name].numel() != 1:
+            raise ValueError(f"{name} must hold one value")
+    return n
+
+
+def check_chunk(pa, pb, real, device) -> None:
+    """A chunk ``(pa, pb)`` a bound step takes: contiguous int32 on
+    ``device``, with ``0 <= real <= len``."""
+    if (pa.dtype != torch.int32 or pb.dtype != torch.int32 or not pa.is_contiguous()
+            or not pb.is_contiguous() or pa.device != device or pb.device != device):
+        raise ValueError(f"pa and pb must be contiguous int32 tensors on {device}")
+    if not 0 <= real <= min(pa.shape[0], pb.shape[0]):
+        raise ValueError(f"real={real} outside 0..{min(pa.shape[0], pb.shape[0])}")
 
 
 class CountScatter:
@@ -286,19 +322,8 @@ class CountScatter:
 
     def __init__(self, counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps, *, dim_block, shortc,
                  num_dims=None, max_ctas=0):
-        n = _dims(tiles, dim_block, num_dims)
-        if tiles.device.type != "cuda":
-            raise ValueError(f"CountScatter runs on cuda tensors, not {tiles.device}")
-        empty = torch.zeros(0, dtype=torch.int32, device=tiles.device)
-        _build.check_tile_args(tiles, tile_len, empty, empty)
-        for arg, what, shape in ((tile_start, "tile_start", tile_len.shape),
-                                 (skipped_tot, "skipped_tot", None), (counts_sorted, "counts_sorted", None)):
-            if arg.dtype != torch.int32 or arg.device != tiles.device or not arg.is_contiguous():
-                raise ValueError(f"{what} must be a contiguous int32 tensor on {tiles.device}")
-            if shape is not None and arg.shape != shape:
-                raise ValueError(f"{what} must match tile_len, got {tuple(arg.shape)}")
-        if skipped_tot.numel() != 1 or counts_sorted.dim() != 1 or counts_sorted.shape[0] < 1:
-            raise ValueError("skipped_tot must hold one value and counts_sorted be (N + 1,)")
+        n = check_step_tables("CountScatter", tiles, tile_len, tile_start, dim_block, num_dims,
+                              skipped_tot=skipped_tot, counts_sorted=counts_sorted)
         self._fn = _build.function("distance_tile_counts", "distance_tile_count_scatter")
         # the kernel keeps raw pointers: the tensors live as long as the step
         self._tables = (tiles, tile_len, tile_start, counts_sorted, skipped_tot)
@@ -310,11 +335,7 @@ class CountScatter:
         self._device = tiles.device
 
     def __call__(self, pa, pb, real) -> None:
-        if (pa.dtype != torch.int32 or pb.dtype != torch.int32 or not pa.is_contiguous()
-                or not pb.is_contiguous() or pa.device != self._device or pb.device != self._device):
-            raise ValueError(f"pa and pb must be contiguous int32 tensors on {self._device}")
-        if not 0 <= real <= min(pa.shape[0], pb.shape[0]):
-            raise ValueError(f"real={real} outside 0..{min(pa.shape[0], pb.shape[0])}")
+        check_chunk(pa, pb, real, self._device)
         if real == 0:
             return
         err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)

@@ -106,6 +106,7 @@ def eval_tile_pairs(
     shortc: bool = True,
     backend: str = "jnp",
     return_mask: bool = False,
+    num_dims=None,
 ):
     """Evaluate one chunk of tile pairs on the tensors' device.
 
@@ -113,11 +114,13 @@ def eval_tile_pairs(
     As in the JAX package, the indexed kernel always short-circuits;
     ``shortc=False`` only zeroes the ``skipped`` stat (``ops.py:141-143``).
     The dense backends ignore ``shortc`` and report 0 skipped blocks.
+    ``num_dims`` (default ``n_pad``) is the data's dimension count: the
+    kernels multiply no dim past it (the zero padding; no result changes).
     """
     if backend in ("pallas", "jnp"):
         res = distance_tile.tile_pair_distance(
             tiles_pts, tile_len, pair_a, pair_b,
-            eps=eps, dim_block=dim_block, return_mask=return_mask,
+            eps=eps, dim_block=dim_block, return_mask=return_mask, num_dims=num_dims,
         )
         counts, skipped = res[0], res[1]
         if not shortc:
@@ -126,7 +129,7 @@ def eval_tile_pairs(
     if backend in ("dense", "dense_jnp"):
         res = dense_tile.dense_tile_distance(
             tiles_pts, tile_len, pair_a, pair_b,
-            eps=eps, dim_block=dim_block, return_mask=return_mask,
+            eps=eps, dim_block=dim_block, return_mask=return_mask, num_dims=num_dims,
         )
         skipped = torch.zeros(pair_a.shape[0], dtype=torch.int32, device=tiles_pts.device)
         return (res[0], skipped, res[1]) if return_mask else (res[0], skipped)
@@ -163,11 +166,13 @@ def tile_counts(
     shortc: bool = True,
     backend: str = "jnp",
     chunk: int = 4096,
+    num_dims=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Counts (P, T) and SHORTC-skipped block counts (P,) for all pairs.
 
     ``tiles_pts`` / ``tile_len`` may be numpy arrays (evaluated on the CPU)
     or tensors (evaluated on their device); results come back as numpy.
+    ``num_dims`` as in ``eval_tile_pairs``.
     """
     tiles = torch.as_tensor(tiles_pts)
     lens = torch.as_tensor(tile_len, device=tiles.device)
@@ -175,7 +180,7 @@ def tile_counts(
     for _, pa, pb, real in _chunks(pair_a, pair_b, chunk, tiles.device):
         counts, skipped = eval_tile_pairs(
             tiles, lens, pa, pb, eps,
-            dim_block=dim_block, shortc=shortc, backend=backend,
+            dim_block=dim_block, shortc=shortc, backend=backend, num_dims=num_dims,
         )
         out_counts.append(counts[:real].cpu().numpy())
         out_skipped.append(skipped[:real].cpu().numpy())

@@ -8,9 +8,13 @@ with a card (no JAX needed, so the shared conftest is skipped):
 Tile inputs are 1/64-quantized, so counts, skipped blocks and masks compare
 with ``==``; K1's two epilogues (per pair, and the fused chunk step) are
 also held against K1's earlier ``tile_eval.cuh`` kernel over
-``chip_smoke.K1_CASES``; the end-to-end tests hold the engine on the card
-against the same engine on the CPU, and check that its count step
-launches K1's fused kernel once per chunk and nothing else.  Flash attention compares within 2e-5 in f32 and
+``chip_smoke.K1_CASES``, and K3 / K4's three epilogues (per pair, the
+dense count step, the dense pairs step) against their plain versions and
+K3 / K4's earlier kernel over ``chip_smoke.DENSE_CASES``; the end-to-end
+tests hold the engine on the card against the same engine on the CPU (the
+dense tier's pair arrays row for row), and check that its steps launch the
+fused kernels once per count chunk (twice per dense pairs chunk) and
+nothing else.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -28,7 +32,7 @@ from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engin
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ATTN_FULL_TOL, K1_CASES, k1_sweep_case  # noqa: E402
+from chip_smoke import ATTN_FULL_TOL, DENSE_CASES, K1_CASES, dense_sweep_case, k1_sweep_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -118,6 +122,8 @@ def test_engine_on_the_card_equals_the_cpu(cuda, mode):
     got_p = card.pairs().pairs
     want_p = host.pairs().pairs
     assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
+    if card.resolve_execution().execution == "dense":  # the fused dense step writes the reference's order
+        np.testing.assert_array_equal(got_p, want_p)
 
 
 @pytest.mark.parametrize("eps", [0.3, 0.05])
@@ -165,6 +171,70 @@ def test_engine_count_launches_the_fused_kernel_once_per_chunk(cuda, n, dim_bloc
     assert got.stats.num_chunks > 1
     if n != 16:
         assert got.stats.dim_blocks_skipped > 0
+
+
+@pytest.mark.parametrize("eps_index", [0, 1])
+@pytest.mark.parametrize("case", range(len(DENSE_CASES)))
+def test_dense_epilogues_equal_plain_and_earlier_kernel(cuda, case, eps_index):
+    t, n, db, order, c, real = DENSE_CASES[case]
+    before = dict(dense_tile.LAUNCHES)
+    dense_sweep_case(torch, np, dense_tile, t, n, db, order, c, real, eps_index, seed=5000 + case)
+    grew = {k: dense_tile.LAUNCHES[k] - before[k] for k in before}
+    # each epilogue on three grids (chip_smoke.k1_grids), the pairs step from
+    # five states and in two launches, the earlier kernel once
+    assert grew == {"dense_tile_distance": 3, "dense_tile_distance_mask": 3, "dense_count_scatter": 3,
+                    "dense_pairs_compact": 30, "dense_tile_distance_tile_eval": 1}
+
+
+@pytest.mark.parametrize("n,dim_block", [(16, 32), (20, 8), (64, 32), (384, 32)])
+def test_engine_dense_launches_only_the_fused_kernels(cuda, n, dim_block):
+    """16 dims in one block (the T=64 fast path), 20 over three blocks of 8,
+    64 over two blocks of 32, and 384 at T = 64, too wide to stage whole: the
+    dense count launches the fused count kernel once per chunk, the dense
+    pairs the fused pairs kernel twice per chunk and K3 only for the
+    result-size estimate; counts, stats and the pair arrays equal the CPU's
+    row for row."""
+    rng = np.random.default_rng(n)
+    centers = rng.random((20, n))
+    d = centers[rng.integers(0, 20, 2000)] + rng.normal(0, 0.03, (2000, n))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    eps = float(np.sqrt(0.9 * n * 2 * (0.03 ** 2 + 1 / 64 ** 2 / 12)))  # 0.9 of a cluster's mean d2
+    cfg = SelfJoinConfig(eps=eps, dim_block=dim_block, execution="dense")
+    eng = EngineConfig(count_chunk=256, pairs_chunk=64)
+    card = SelfJoinEngine(d, cfg, eng, device=cuda)
+    host = SelfJoinEngine(d, cfg, eng, device="cpu")
+    snap = card.snapshot
+    dt = snap.dense_tables()
+    assert dense_tile.dense_staging(dt.tiles.shape[1], n) == (dense_tile.K1_SLAB if n > 300 else 0)
+    assert isinstance(engine.count_step(
+        torch.zeros(1, dtype=torch.int32, device=cuda), torch.zeros((), dtype=torch.int32, device=cuda),
+        dt.tiles, dt.tile_len, dt.tile_start, eps, dim_block=dim_block, shortc=False, backend="dense"),
+        dense_tile.DenseCountScatter)
+    buf = torch.zeros((10, 2), dtype=torch.int32, device=cuda)
+    scalars = [torch.zeros((), dtype=torch.int32, device=cuda) for _ in range(2)]
+    assert isinstance(engine.pairs_step(buf, *scalars, dt.tiles, dt.tile_len, dt.tile_start, snap.point_order, eps,
+                                        hit_cap=4, dim_block=dim_block, backend="dense", chunk=64),
+                      dense_tile.DensePairsCompact)
+    before = _launches()
+    got = card.count()
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    assert grew == {k: got.stats.num_chunks if k == "dense_count_scatter" else 0 for k in grew}
+    want = host.count()
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.stats == want.stats and got.stats.num_chunks > 1 and got.stats.num_results > len(d)
+    before = _launches()
+    got = card.pairs()
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    est = grew["dense_tile_distance"]
+    assert est > 0
+    assert grew == {k: 2 * got.stats.num_device_dispatches if k == "dense_pairs_compact"
+                    else est if k == "dense_tile_distance" else 0 for k in grew}
+    want = host.pairs()
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.stats == want.stats
 
 
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
