@@ -14,12 +14,18 @@ Phases, each printing one JSON line:
 2. kernels -- each kernel (K1-K4) against its plain PyTorch version on the
    card: a sweep of tile sizes and dim blocks on 1/64-quantized tiles
    (counts, skipped and mask must be equal); K1's own sweep (``K1_CASES``:
-   both epilogues of ``csrc/distance_tile_counts.cu``, per pair and the
-   fused chunk step, against their plain versions and against K1's
+   K1's two epilogues of ``csrc/distance_tile_counts.cu``, per pair and the
+   fused count chunk step, against their plain versions and against K1's
    earlier ``tile_eval.cuh`` kernel, all with ``==``, each on the full
    grid, on one CTA and on a grid whose CTA ranges end on run changes of
    pair_a; and K1 at T=64 x 384 dims, staged in slices, timed beside the
-   earlier kernel); the dense sweep (``DENSE_CASES``: the three epilogues
+   earlier kernel); K2's sweep (``K2_CASES``: K1's cases and cases with
+   many hits whose far pairs break SHORTC after the first block; K2 per
+   pair -- counts, skipped, mask -- against its plain version and K2's
+   earlier kernel, and the fused indexed pairs step from five states of
+   the pair buffer against ``tile_pair_pairs_compact_plain``: the whole
+   buffer, offset and max_chunk_hits, all with ``==`` on the same three
+   grids); the dense sweep (``DENSE_CASES``: the three epilogues
    of ``csrc/dense_tile_fused.cu`` -- K3 / K4 per pair, the dense count
    chunk step, the dense pairs chunk step from five states of the pair
    buffer -- against their plain versions, and per pair against K3 / K4's
@@ -28,19 +34,22 @@ Phases, each printing one JSON line:
    stated eps-boundary tolerance), with torch.profiler device times of
    the kernel, the plain version and one PyTorch yardstick, and the bound
    the card could reach on the same work over the data's real dimensions;
-   K1, K3 and K4 beside their earlier kernels on the same chunk, and the
-   three fused chunk steps (K1's count; the dense count and pairs) beside
-   the composed steps and the steps they replaced;
+   K1-K4 beside their earlier kernels on the same chunk, and the four
+   fused chunk steps (K1's count, K2's indexed pairs on CoocTexture's
+   indexed chunk; the dense count and pairs) beside the composed steps and
+   the steps they replaced, with their hits per chunk;
 3. count   -- ``SelfJoinEngine.count`` on Syn16D2M (2,000,000 x 16,
    exponential lambda=40; paper Table 1) at eps=0.03 with the default
    config, spot-checked against a float64 brute force on the card; it
    must launch K1's fused kernel once per chunk and no other kernel;
-4. pairs   -- ``SelfJoinEngine.pairs`` and the dense tier
-   (``SelfJoinEngine`` with execution="dense", counts and pairs, its host
+4. pairs   -- ``SelfJoinEngine.count`` / ``.pairs`` on the indexed tier and
+   the dense tier (``SelfJoinEngine`` with execution="dense", its host
    plan timed apart from its device part) on CoocTexture (68,040 x 16) at
-   eps=0.1: the dense count must launch the fused dense count kernel once
-   per chunk and nothing else, the dense pairs the fused pairs kernel twice
-   per chunk and nothing else but the result-size estimate's K3; then the
+   eps=0.1: each count must launch its tier's fused count kernel once per
+   chunk and nothing else, each pairs its tier's fused pairs kernel twice
+   per chunk and nothing else but the result-size estimate's K1 (indexed)
+   or K3 (dense); each pairs' time is split by the engine's spans into
+   what precedes its chunk loops, the loops and what follows them; then the
    wide dense run, Syn64D2M (200,000 of its 2,000,000 x 64 points) at
    eps=0.1 with execution="dense" (the general path: two dim blocks),
    spot-checked against the float64 brute force and against the indexed
@@ -63,10 +72,10 @@ Phases, each printing one JSON line:
    part each run right after phase 2's, so a faulty kernel fails the run
    before the long phases;
 6. profile -- windows of Syn16D2M count chunks, CoocTexture dense count
-   chunks and CoocTexture dense pairs chunks, each run as the engine runs
-   them, by the host clock, CUDA events and torch.profiler: the device's
-   busy share and its kernels (the fused kernel of the step only).  It
-   runs before phase 3.
+   chunks, CoocTexture dense pairs chunks and CoocTexture indexed pairs
+   chunks, each run as the engine runs them, by the host clock, CUDA
+   events and torch.profiler: the device's busy share and its kernels (the
+   fused kernel of the step only).  It runs before phase 3.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -114,7 +123,7 @@ KERNELS = {
     # name: (module attribute, CUDA source, TPU kernel replaced, mask mode)
     "tile_pair_distance": ("distance_tile", "src/repro_torch/csrc/distance_tile_counts.cu",
                            "src/repro/kernels/distance_tile.py:111", False),
-    "tile_pair_distance_mask": ("distance_tile", "src/repro_torch/csrc/distance_tile.cu",
+    "tile_pair_distance_mask": ("distance_tile", "src/repro_torch/csrc/distance_tile_counts.cu",
                                 "src/repro/kernels/distance_tile.py:98", True),
     "dense_tile_distance": ("dense_tile", "src/repro_torch/csrc/dense_tile_fused.cu",
                             "src/repro/kernels/dense_tile.py:98", False),
@@ -128,6 +137,10 @@ TILE_KERNELS = [name for name, spec in KERNELS.items() if spec[0] != "flash_atte
 # of src/repro/core/engine.py:97 count_chunk_step's scatter
 SCATTER = ("tile_pair_count_scatter", "src/repro_torch/csrc/distance_tile_counts.cu",
            "src/repro/kernels/distance_tile.py:111")
+# K2's fused chunk step: epilogue (c) of K1 / K2's kernel, which also does the
+# work of src/repro/core/engine.py:145 pairs_chunk_step's compaction
+PAIRS = ("tile_pair_pairs_compact", "src/repro_torch/csrc/distance_tile_counts.cu",
+         "src/repro/kernels/distance_tile.py:98")
 # the dense tier's fused chunk steps: epilogues (b) and (c) of K3 / K4's
 # kernel, which also do the work of src/repro/core/engine.py:97
 # count_chunk_step's scatter and :145 pairs_chunk_step's compaction
@@ -135,10 +148,10 @@ DENSE_STEPS = {
     "dense_count_scatter": ("src/repro_torch/csrc/dense_tile_fused.cu", "src/repro/kernels/dense_tile.py:98"),
     "dense_pairs_compact": ("src/repro_torch/csrc/dense_tile_fused.cu", "src/repro/kernels/dense_tile.py:85"),
 }
-K1_KERNEL = "k1_counts_kernel"      # device name of both K1 epilogues (profiler filter)
+K1_KERNEL = "k1_kernel"             # device name of K1 / K2's epilogues (distance_tile_counts.cu)
 DENSE_KERNEL = "dense_kernel"       # device name of K3 / K4's epilogues (dense_tile_fused.cu)
-TILE_EVAL_KERNEL = "tile_pair_kernel"  # K2 and K1 / K3 / K4's earlier kernels (tile_eval.cuh)
-PROFILED_KERNEL = {"tile_pair_distance": K1_KERNEL, "tile_pair_distance_mask": TILE_EVAL_KERNEL,
+TILE_EVAL_KERNEL = "tile_pair_kernel"  # K1-K4's earlier kernels (tile_eval.cuh)
+PROFILED_KERNEL = {"tile_pair_distance": K1_KERNEL, "tile_pair_distance_mask": K1_KERNEL,
                    "dense_tile_distance": DENSE_KERNEL, "dense_tile_distance_mask": DENSE_KERNEL}
 
 # phase 2: K1's sweep, (T, n, dim_block, pair order, C, real, shortc).  n <
@@ -169,6 +182,15 @@ K1_CASES = [
     (64, 384, 32, "sorted", 300, 290, True), (128, 200, 40, "random", 300, 300, True),
     (100, 150, 50, "sorted", 2000, 1900, True), (16, 1210, 121, "sorted", 300, 300, True),
     (24, 700, 350, "random", 300, 280, False),
+]
+
+# phase 2: K2's sweep runs K1_CASES (the shortc flag unused: the pairs step
+# drops skipped blocks) and these, where few dims make many hits per pair
+# and the far tiles 0 / 1 break SHORTC after the first block: 2 dims in two
+# blocks of 1, 3 in three, 4 in two at T = 128, 5 in two blocks of 4 at T = 16
+K2_CASES = K1_CASES + [
+    (64, 2, 1, "sorted", 1024, 1000, True), (32, 3, 1, "random", 300, 290, True),
+    (128, 4, 2, "sorted", 600, 600, True), (16, 5, 4, "sorted", 2000, 1990, True),
 ]
 
 # phase 2: the dense sweep (K3 / K4's three epilogues in
@@ -239,11 +261,11 @@ def ptxas_summary(text: str):
             args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
             flash = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", m.group(1))
             wgmma = re.search(r"flash_wgmma_kernelILi(\d)ELi(\d)E", m.group(1))
-            k1 = re.search(r"k1_counts_kernelILi(\d)ELb(\d)ELi(\d+)E", m.group(1))
+            k1 = re.search(r"k1_kernelILi(\d)ELi(\d)ELi(\d+)E", m.group(1))
             dense = re.search(r"dense_kernelILi(\d)ELi(\d)ELi(\d+)E", m.group(1))
-            if k1:
-                name = "k1_counts_kernel<MT=%s,FUSED=%s,KD=%s>" % k1.groups()
-            elif dense:  # MODE 0: per pair, 1: count scatter, 2: pairs pass 1, 3: pairs pass 2
+            if k1:  # MODE 0: per pair, 1: count scatter, 2: pairs pass 1, 3: pairs pass 2, 4: per pair with the mask
+                name = "k1_kernel<MT=%s,MODE=%s,KD=%s>" % k1.groups()
+            elif dense:  # MODE as for k1_kernel
                 name = "dense_kernel<MT=%s,MODE=%s,KD=%s>" % dense.groups()
             elif args:
                 name = "tile_pair_kernel<R=%s,SHORTC=%s,CLAMP=%s,MASK=%s>" % args.groups()
@@ -381,10 +403,11 @@ def phase_sweep(torch, np, fns):
 
 
 def k1_case(torch, np, t, n, db, order, c, seed, device="cuda"):
-    """Inputs of one K1 sweep case on ``device``: 1/64-quantized tiles of 12
-    tiles x t rows x n dims padded to n_pad, ragged lengths, ``tile_start``
-    into a grid-sorted space of N = 12 t - 3 rows (the last tile's last rows
-    drop, as the reference's mode="drop"), and c pairs.  Tiles 0 / 1 are
+    """Inputs of one K1 / K2 sweep case on ``device``: 1/64-quantized tiles
+    of 12 tiles x t rows x n dims padded to n_pad, ragged lengths,
+    ``tile_start`` into a grid-sorted space of N = 12 t - 3 rows (the last
+    tile's last rows drop, as the reference's mode="drop") with a random
+    ``point_order`` of its 12 t positions, and c pairs.  Tiles 0 / 1 are
     far apart in every dim (SHORTC breaks after the first block); tiles 2 /
     3 agree on the first block and are far apart in the second (a break
     after the second).  ``order`` "sorted" sorts the pairs by (pair_a,
@@ -418,6 +441,7 @@ def k1_case(torch, np, t, n, db, order, c, seed, device="cuda"):
         starts=torch.from_numpy(starts).to(device), pa=torch.from_numpy(pairs[:, 0].copy()).to(device),
         pb=torch.from_numpy(pairs[:, 1].copy()).to(device), n=n, n_sorted=num_tiles * t - 3,
         state=torch.from_numpy(rng.integers(0, 50, size=num_tiles * t - 2).astype(np.int32)).to(device),
+        point_order=torch.from_numpy(rng.permutation(num_tiles * t).astype(np.int32)).to(device),
     )
 
 
@@ -611,6 +635,92 @@ def phase_k1_sweep(torch, np):
     rec = {"phase": "k1_sweep", "cases": cases, "shortc_after_first_block": after_first,
            "shortc_after_later_block": after_later, "run_edges": edges,
            "staging_slab_mt": sorted(staging), "launches": launched, "wide_rows": wide}
+    emit(rec)
+    return rec
+
+
+def k2_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, eps, seed):
+    """One K2 case on the card, on each of ``k1_grids``: epilogue (a) with
+    the mask (counts, skipped and mask) against its plain version and
+    against K2's earlier kernel (tile_eval.cuh); epilogue (c) (bound as
+    ``PairsCompact``, as the engine binds it) against
+    ``tile_pair_pairs_compact_plain`` from every state of ``pairs_states``
+    (the whole buffer, offset and max_chunk_hits); all with ``==``.
+    Returns the chunk's hits, whether SHORTC broke a pair after its first
+    block, and the capped grids' ``run_edges`` summed."""
+    x = k1_case(torch, np, t, n, db, order, c, seed)
+    args = (x["tiles"], x["lens"], x["pa"], x["pb"])
+    tables = (x["tiles"], x["lens"], x["starts"], x["point_order"])
+    what = f"K2 T={t} n={n} db={db} {order} C={c} real={real} eps={eps}"
+    want = distance_tile.tile_pair_distance_plain(*args, eps=eps, dim_block=db, return_mask=True, num_dims=n)
+    earlier = distance_tile.tile_pair_distance_tile_eval(*args, eps=eps, dim_block=db, return_mask=True)
+    nh = int(want[0][:real].sum())
+    want_pairs = []
+    for name, offset0, cap, hit_cap in pairs_states(nh):
+        st = pairs_state(torch, offset0, cap, hit_cap)
+        distance_tile.tile_pair_pairs_compact_plain(*st, *tables, x["pa"], x["pb"], real, eps, hit_cap=hit_cap,
+                                                    dim_block=db, num_dims=n)
+        want_pairs.append((name, offset0, cap, hit_cap, st))
+    pa = x["pa"].cpu().numpy()
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    for grid in k1_grids(pa[:real], real):
+        on = f"{what} grid={grid or 'full'}"
+        got = distance_tile.tile_pair_distance(*args, eps=eps, dim_block=db, return_mask=True, num_dims=n,
+                                               max_ctas=grid)
+        torch.cuda.synchronize()
+        for g, w, e, part in zip(got, want, earlier, ("counts", "skipped", "mask")):
+            check(torch.equal(g, w), f"{on}: {part} of K2 != plain")
+            check(torch.equal(g, e), f"{on}: {part} of K2 != K2's earlier kernel")
+        for name, offset0, cap, hit_cap, (w_buf, w_off, w_max) in want_pairs:
+            buf, off, mx = pairs_state(torch, offset0, cap, hit_cap)
+            distance_tile.PairsCompact(buf, off, mx, *tables, eps, hit_cap=hit_cap, chunk=c, dim_block=db,
+                                       num_dims=n, max_ctas=grid)(x["pa"], x["pb"], real)
+            torch.cuda.synchronize()
+            check(int(off) == int(w_off) == offset0 + nh and int(mx) == int(w_max),
+                  f"{on} {name}: offset {int(off)} / max_chunk_hits {int(mx)} != plain's {int(w_off)} / {int(w_max)}")
+            check(torch.equal(buf, w_buf), f"{on} {name}: the fused pairs step's buffer != plain")
+        if grid:
+            for num, q in ((c, pa), (real, pa[:real])):
+                for k, v in run_edges(q, num, min(grid, num)).items():
+                    edges[k] += v
+    blocks = x["tiles"].shape[2] // db
+    return nh, bool((want[1][:real] == blocks - 1).any()) and blocks > 1, edges
+
+
+def phase_k2_sweep(torch, np):
+    """K2_CASES at eps 0.3 and 0.05, each on three grids: K2 per pair and
+    the fused pairs step from five buffer states.  SHORTC must break after
+    the first block somewhere, chunks with and without hits past a state's
+    hit_cap must occur, and the capped grids must put run changes inside,
+    on and across edges."""
+    from repro_torch.kernels import distance_tile
+
+    cases, hits, after_first = 0, 0, 0
+    edges = {"change_inside": 0, "change_on_edge": 0, "run_across_edge": 0}
+    staging = set()
+    before = dict(distance_tile.LAUNCHES)
+    t0 = time.perf_counter()
+    for i, (t, n, db, order, c, real, _) in enumerate(K2_CASES):
+        staging.add((distance_tile.k1_staging(t, n), 1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8))
+        for eps in (0.3, 0.05):
+            nh, first, e = k2_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, eps, seed=7000 + i)
+            hits += nh
+            after_first += first
+            for k, v in e.items():
+                edges[k] += v
+            cases += 1
+    launched = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
+    grids, states = 3, len(pairs_states(0))
+    expect = {"tile_pair_distance": 0, "tile_pair_count_scatter": 0, "tile_pair_distance_mask": grids * cases,
+              "tile_pair_pairs_compact": 2 * states * grids * cases, "tile_pair_distance_tile_eval": cases}
+    check(launched == expect, f"the K2 sweep launched {launched} for {cases} cases, expected {expect}")
+    check(after_first > 0, "SHORTC never broke after the first block in the K2 sweep")
+    check(all(edges.values()), f"the capped grids put pair_a's run changes at {edges}")
+    check({s for s, _ in staging} == {0, distance_tile.K1_SLAB} and {mt for s, mt in staging if s} == {1, 2, 4, 8},
+          f"the K2 sweep staged (slab, MT) {sorted(staging)}")
+    rec = {"phase": "k2_sweep", "cases": cases, "hits": hits, "shortc_after_first_block": after_first,
+           "run_edges": edges, "staging_slab_mt": sorted(staging), "launches": launched,
+           "seconds": time.perf_counter() - t0}
     emit(rec)
     return rec
 
@@ -840,7 +950,7 @@ def phase_real_width(torch, np, fns, inputs):
     rows = {}
     for name, (kern, plain) in fns.items():
         tiles, lens, pa, pb, n, eps, db, source = inputs[name]
-        kw = dict(eps=eps, dim_block=db, **({} if name == "tile_pair_distance_mask" else {"num_dims": n}))
+        kw = dict(eps=eps, dim_block=db, num_dims=n)
         got = kern(tiles, lens, pa, pb, **kw)
         want = plain(tiles, lens, pa, pb, **kw)
         torch.cuda.synchronize()
@@ -867,24 +977,26 @@ def phase_real_width(torch, np, fns, inputs):
         p_ms, _ = device_ms(torch, run_p, iters=5)
         l_ms, _ = device_ms(torch, run_l, iters=5)
         b_ms, b_by, nbytes, flop = bound(torch, tiles, pa, pb, n, db, skipped, mask)
-        extra = {}
-        if name == "tile_pair_distance":  # K1's earlier kernel (tile_eval.cuh) on the same inputs
-            run_e = lambda: distance_tile.tile_pair_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db)  # noqa: E731
+        extra = {"hits": int(got[0].sum())}
+        if name.startswith("tile_pair_distance"):  # K1 / K2's earlier kernel (tile_eval.cuh) on the same inputs
+            run_e = lambda: distance_tile.tile_pair_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db,  # noqa: E731
+                                                                       return_mask=mask)
             e_got = run_e()
-            check(torch.equal(e_got[1], got[1]), "K1's earlier kernel: skipped differs from K1")
+            check(torch.equal(e_got[1], got[1]), f"{name}'s earlier kernel: skipped differs")
             e_ms, _ = device_ms(torch, run_e, kernel=TILE_EVAL_KERNEL)
-            extra = {"earlier_ms": e_ms, "earlier_count_diffs": int((e_got[0] != got[0]).sum()),
-                     "earlier": "K1's tile_eval.cuh kernel (src/repro_torch/csrc/distance_tile.cu, all n_pad "
-                                "dims, one block per pair) on the same inputs in this run"}
+            extra.update(earlier_ms=e_ms, earlier_count_diffs=int((e_got[0] != got[0]).sum()),
+                         earlier_mask_diffs=int((e_got[-1] != got[-1]).sum()) if mask else None,
+                         earlier="K1 / K2's tile_eval.cuh kernel (src/repro_torch/csrc/distance_tile.cu, all "
+                                 "n_pad dims, one block per pair) on the same inputs in this run")
         if name.startswith("dense"):  # K3 / K4's earlier kernel (tile_eval.cuh) on the same inputs
             run_e = lambda: dense_tile.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db,  # noqa: E731
                                                                      return_mask=mask)
             e_got = run_e()
             e_ms, _ = device_ms(torch, run_e, kernel=TILE_EVAL_KERNEL)
-            extra = {"earlier_ms": e_ms, "earlier_count_diffs": int((e_got[0] != got[0]).sum()),
-                     "earlier_mask_diffs": int((e_got[-1] != got[-1]).sum()) if mask else None,
-                     "earlier": "K3 / K4's tile_eval.cuh kernel (src/repro_torch/csrc/dense_tile.cu, all n_pad "
-                                "dims, one block per pair) on the same inputs in this run"}
+            extra.update(earlier_ms=e_ms, earlier_count_diffs=int((e_got[0] != got[0]).sum()),
+                         earlier_mask_diffs=int((e_got[-1] != got[-1]).sum()) if mask else None,
+                         earlier="K3 / K4's tile_eval.cuh kernel (src/repro_torch/csrc/dense_tile.cu, all n_pad "
+                                 "dims, one block per pair) on the same inputs in this run")
         rows[name] = {
             "inputs": source, "pairs": int(pa.shape[0]), "T": int(tiles.shape[1]), "n": n,
             "n_pad": int(tiles.shape[2]), "dim_block": db, "computed_blocks": computed,
@@ -975,17 +1087,133 @@ def phase_fused_step(torch, tiles, lens, starts, num_points, pa, pb, n, eps, db,
     return rec
 
 
+def pairs_step_row(torch, tier, tables, point_order, pa, pb, n, eps, db, source):
+    """One tier's fused pairs chunk step (epilogue c, both passes; tier
+    "indexed": K2 in ``distance_tile_counts.cu``, "dense": K4 in
+    ``dense_tile_fused.cu``) on a main-path chunk, at the ``hit_cap`` of
+    the engine after its retry.  Held exactly against the same kernel's
+    per-pair mask + ``engine.compact_mask`` (the reference's rank-select)
+    and against its plain version up to the eps-boundary lanes; timed
+    beside those, the step it replaced (the ``tile_eval.cuh`` kernel's mask
+    + ``compact_mask``), the yardstick's mask + ``compact_mask``, and the
+    bound over the real dims of the blocks this data computed, with the
+    hits written."""
+    from repro_torch.core.engine import compact_mask, pairs_step
+    from repro_torch.kernels import dense_tile, distance_tile
+
+    tiles, lens, starts = tables
+    t = tiles.shape[1]
+    real = pa.shape[0]
+    eps2 = distance_tile.eps_squared(eps)
+    if tier == "dense":
+        def per_pair():
+            return dense_tile.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True,
+                                                  num_dims=n)
+
+        def earlier_mask():
+            return dense_tile.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db,
+                                                            return_mask=True)[-1]
+
+        plain_step, backend, kernel, k = dense_tile.dense_pairs_compact_plain, "dense", DENSE_KERNEL, "K4"
+        fused_cls, file = dense_tile.DensePairsCompact, "dense_tile_fused.cu"
+        earlier = "K4's tile_eval.cuh kernel (dense_tile.cu)"
+    else:
+        def per_pair():
+            return distance_tile.tile_pair_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True,
+                                                    num_dims=n)
+
+        def earlier_mask():
+            return distance_tile.tile_pair_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db,
+                                                              return_mask=True)[-1]
+
+        plain_step, backend, kernel, k = distance_tile.tile_pair_pairs_compact_plain, "pallas", K1_KERNEL, "K2"
+        fused_cls, file = distance_tile.PairsCompact, "distance_tile_counts.cu"
+        earlier = "K2's tile_eval.cuh kernel (distance_tile.cu)"
+    got = per_pair()
+    counts, mask = got[0], got[-1]
+    skipped = got[1] if tier != "dense" else None
+    nh = int(counts.sum())
+    hit_cap = max(4096, -(-nh // 1024) * 1024)  # the engine's window after its hit_cap retry
+    cap = nh + 8
+    landed = landed_rows(0, nh, cap, hit_cap)
+
+    def pstate():
+        return pairs_state(torch, 0, cap, hit_cap)
+
+    fused, composed, plain, replaced = pstate(), pstate(), pstate(), pstate()
+    fused_cls(*fused, tiles, lens, starts, point_order, eps, hit_cap=hit_cap, chunk=real, dim_block=db,
+              num_dims=n)(pa, pb, real)
+    compact_mask(*composed, mask, starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    plain_step(*plain, tiles, lens, starts, point_order, pa, pb, real, eps, hit_cap=hit_cap, dim_block=db,
+               num_dims=n)
+    compact_mask(*replaced, earlier_mask(), starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    near_lanes = int(boundary_slack(torch, tiles, lens, pa, pb, eps).sum())
+    torch.cuda.synchronize()
+    check(int(fused[1]) == int(composed[1]) == nh and int(fused[2]) == int(composed[2]),
+          f"the fused {tier} pairs step's offset / max {int(fused[1])} / {int(fused[2])} != composed's")
+    check(torch.equal(fused[0][:landed], composed[0][:landed]),
+          f"the fused {tier} pairs step's buffer != {k}'s per-pair epilogue + the PyTorch compaction")
+    check(abs(int(plain[1]) - nh) <= near_lanes, f"the fused {tier} pairs step's hits differ from plain beyond "
+          "the eps boundary")
+
+    with torch.cuda.device(tiles.device):
+        step = pairs_step(*pstate(), tiles, lens, starts, point_order, eps, hit_cap=hit_cap, dim_block=db,
+                          backend=backend, chunk=real, num_dims=n)
+        check(isinstance(step, fused_cls), f"engine.pairs_step bound {type(step).__name__} for the {tier} tier")
+        run_k = lambda: step(pa, pb, real)  # noqa: E731
+        means = kernel_ms(torch, run_k)
+        k_event_ms = event_ms(torch, run_k, iters=50)
+    check(all(kernel in key for key in means) and len(means) == 2,
+          f"the fused {tier} pairs step launched {sorted(means)}, not the fused kernel's two passes")
+    st = pstate()
+    run_c = lambda: compact_mask(*st, per_pair()[-1], starts, point_order, pa, pb, real, hit_cap=hit_cap)  # noqa: E731
+    run_e = lambda: compact_mask(*st, earlier_mask(), starts, point_order, pa, pb, real, hit_cap=hit_cap)  # noqa: E731
+    run_p = lambda: plain_step(*st, tiles, lens, starts, point_order, pa, pb, real, eps,  # noqa: E731
+                               hit_cap=hit_cap, dim_block=db, num_dims=n)
+    run_l = lambda: compact_mask(*st, yardstick(torch, tiles, lens, pa, pb, eps2)[1].to(torch.int8),  # noqa: E731
+                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
+    _, _, nbytes, flop = bound(torch, tiles, pa, pb, n, db, skipped, False)
+    uniq = int(torch.unique(torch.cat([pa, pb])).numel())
+    # no (P, T) counts or skipped: the landed rows written (8 bytes each) and the touched point_order rows read
+    nbytes += min(nh, hit_cap) * 8 + uniq * t * 4 - real * t * 4 - (real * 4 if skipped is not None else 0)
+    return {
+        "inputs": source, "pairs": real, "T": t, "n": n, "n_pad": int(tiles.shape[2]), "dim_block": db,
+        "hits": nh, "hit_cap": hit_cap, "boundary_lanes": near_lanes,
+        "max_abs_err": abs(int(plain[1]) - nh), "earlier_offset_diff": int(replaced[1]) - nh,
+        "ms": sum(ms for ms, _ in means.values()), "pass_ms": {key[:70]: v for key, v in means.items()},
+        "event_ms": k_event_ms,
+        "composed_ms": device_ms(torch, run_c)[0], "earlier_ms": device_ms(torch, run_e)[0],
+        "earlier_event_ms": event_ms(torch, run_e, iters=50),
+        "plain_ms": device_ms(torch, run_p, iters=5)[0], "library_ms": device_ms(torch, run_l, iters=5)[0],
+        "bound_ms": max(nbytes / PEAK_HBM_BYTES, flop / PEAK_FP32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / PEAK_HBM_BYTES > flop / PEAK_FP32_FLOPS else "operations",
+        "bytes": nbytes, "flop": flop,
+        "composed": f"{k} per pair ({file} epilogue a, with the mask) + engine.compact_mask, device time per call",
+        "earlier": f"the step this kernel replaced: {earlier} + engine.compact_mask, device time per call "
+                   "(earlier_event_ms: CUDA events, 50 calls)",
+        "library": "the baddbmm yardstick's mask + engine.compact_mask",
+    }
+
+
+def phase_indexed_pairs_step(torch, tables, point_order, pa, pb, n, eps, db, source):
+    """K2's fused pairs chunk step on a main-path chunk (``pairs_step_row``)."""
+    row = pairs_step_row(torch, "indexed", tables, point_order, pa, pb, n, eps, db, source)
+    emit({"phase": "indexed_pairs_step_real_width", "timing": "torch.profiler device time (the sum of its two "
+          "passes' per-launch means over 20 calls), per call (composed, earlier: 20; plain, library: 5); "
+          "event_ms: CUDA events over 50 back-to-back bound calls, host time included", **row, "smi": smi_sample()})
+    return row
+
+
 def phase_dense_steps(torch, tables, point_order, num_points, count_chunk, pairs_chunk, n, eps, db, source):
     """The dense tier's two fused chunk steps on main-path chunks: the count
     step (epilogue b) on ``count_chunk``, the pairs step (epilogue c, both
-    passes) on ``pairs_chunk``.  Each is held exactly against the per-pair
-    epilogue (a) of the same kernel with the PyTorch step around it
-    (``scatter_counts``; ``engine.compact_mask``, the rank-select) and
-    against its plain version up to the eps-boundary lanes; timed beside
-    those, the step it replaced (K3 / K4's earlier kernel, dense_tile.cu,
-    with the same PyTorch step), the yardstick with the same PyTorch step,
-    and the bound over the real dims."""
-    from repro_torch.core.engine import compact_mask, count_step, pairs_step
+    passes, ``pairs_step_row``) on ``pairs_chunk``.  The count step is held
+    exactly against the per-pair epilogue (a) of the same kernel with
+    ``scatter_counts`` around it and against its plain version up to the
+    eps-boundary lanes; timed beside those, the step it replaced (K3's
+    earlier kernel, dense_tile.cu, with ``scatter_counts``), the yardstick
+    with ``scatter_counts``, and the bound over the real dims."""
+    from repro_torch.core.engine import count_step
     from repro_torch.kernels import dense_tile as dt
     from repro_torch.kernels.distance_tile import eps_squared, scatter_counts
 
@@ -1047,78 +1275,8 @@ def phase_dense_steps(torch, tables, point_order, num_points, count_chunk, pairs
     }
 
     # -- the pairs step
-    pa, pb = pairs_chunk
-    real = pa.shape[0]
-    counts, mask = dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True, num_dims=n)
-    nh = int(counts.sum())
-    hit_cap = max(4096, -(-nh // 1024) * 1024)  # the engine's window after its hit_cap retry
-    cap = nh + 8
-    landed = landed_rows(0, nh, cap, hit_cap)
-
-    def pstate():
-        return pairs_state(torch, 0, cap, hit_cap)
-
-    fused, composed, plain, earlier = pstate(), pstate(), pstate(), pstate()
-    dt.DensePairsCompact(*fused, tiles, lens, starts, point_order, eps, hit_cap=hit_cap, chunk=real, dim_block=db,
-                         num_dims=n)(pa, pb, real)
-    compact_mask(*composed, mask, starts, point_order, pa, pb, real, hit_cap=hit_cap)
-    dt.dense_pairs_compact_plain(*plain, tiles, lens, starts, point_order, pa, pb, real, eps, hit_cap=hit_cap,
-                                 dim_block=db, num_dims=n)
-    e_mask = dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps, dim_block=db, return_mask=True)[1]
-    compact_mask(*earlier, e_mask, starts, point_order, pa, pb, real, hit_cap=hit_cap)
-    near_lanes = int(boundary_slack(torch, tiles, lens, pa, pb, eps).sum())
-    torch.cuda.synchronize()
-    check(int(fused[1]) == int(composed[1]) == nh and int(fused[2]) == int(composed[2]),
-          f"the fused dense pairs step's offset / max {int(fused[1])} / {int(fused[2])} != composed's")
-    check(torch.equal(fused[0][:landed], composed[0][:landed]),
-          "the fused dense pairs step's buffer != K4's per-pair epilogue + the PyTorch compaction")
-    check(abs(int(plain[1]) - nh) <= near_lanes, "the fused dense pairs step's hits differ from plain beyond "
-          "the eps boundary")
-
-    def bound_step(st):
-        return pairs_step(*st, tiles, lens, starts, point_order, eps, hit_cap=hit_cap, dim_block=db,
-                          backend="dense", chunk=real, num_dims=n)
-
-    with torch.cuda.device(tiles.device):
-        step = bound_step(pstate())
-        run_k = lambda: step(pa, pb, real)  # noqa: E731
-        means = kernel_ms(torch, run_k)
-        k_event_ms = event_ms(torch, run_k, iters=50)
-    check(all(DENSE_KERNEL in k for k in means) and len(means) == 2,
-          f"the fused dense pairs step launched {sorted(means)}, not the fused kernel's two passes")
-    st = pstate()
-    run_c = lambda: compact_mask(*st, dt.dense_tile_distance(tiles, lens, pa, pb, eps=eps, dim_block=db,  # noqa: E731
-                                                             return_mask=True, num_dims=n)[1],
-                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
-    run_e = lambda: compact_mask(*st, dt.dense_tile_distance_tile_eval(tiles, lens, pa, pb, eps=eps,  # noqa: E731
-                                                                       dim_block=db, return_mask=True)[1],
-                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
-    run_p = lambda: dt.dense_pairs_compact_plain(*st, tiles, lens, starts, point_order, pa, pb, real, eps,  # noqa: E731
-                                                 hit_cap=hit_cap, dim_block=db, num_dims=n)
-    run_l = lambda: compact_mask(*st, yardstick(torch, tiles, lens, pa, pb, eps2)[1].to(torch.int8),  # noqa: E731
-                                 starts, point_order, pa, pb, real, hit_cap=hit_cap)
-    _, _, nbytes, flop = bound(torch, tiles, pa, pb, n, db, None, False)
-    uniq = int(torch.unique(torch.cat([pa, pb])).numel())
-    # no (P, T) counts: the landed rows written (8 bytes each) and the touched point_order rows read
-    nbytes += min(nh, hit_cap) * 8 + uniq * t * 4 - real * t * 4
-    rows["dense_pairs_compact"] = {
-        "inputs": source, "pairs": real, "T": t, "n": n, "n_pad": int(tiles.shape[2]), "dim_block": db,
-        "hits": nh, "hit_cap": hit_cap, "boundary_lanes": near_lanes,
-        "max_abs_err": abs(int(plain[1]) - nh), "earlier_offset_diff": int(earlier[1]) - nh,
-        "ms": sum(ms for ms, _ in means.values()), "pass_ms": {k[:70]: v for k, v in means.items()},
-        "event_ms": k_event_ms,
-        "composed_ms": device_ms(torch, run_c)[0], "earlier_ms": device_ms(torch, run_e)[0],
-        "earlier_event_ms": event_ms(torch, run_e, iters=50),
-        "plain_ms": device_ms(torch, run_p, iters=5)[0], "library_ms": device_ms(torch, run_l, iters=5)[0],
-        "bound_ms": max(nbytes / PEAK_HBM_BYTES, flop / PEAK_FP32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / PEAK_HBM_BYTES > flop / PEAK_FP32_FLOPS else "operations",
-        "bytes": nbytes, "flop": flop,
-        "composed": "K4 per pair (dense_tile_fused.cu epilogue a, with the mask) + engine.compact_mask, "
-                    "device time per call",
-        "earlier": "the step this kernel replaced: K4's tile_eval.cuh kernel (dense_tile.cu) + "
-                   "engine.compact_mask, device time per call (earlier_event_ms: CUDA events, 50 calls)",
-        "library": "the baddbmm yardstick's mask + engine.compact_mask",
-    }
+    rows["dense_pairs_compact"] = pairs_step_row(torch, "dense", tables, point_order, *pairs_chunk, n, eps, db,
+                                                 source)
     emit({"phase": "dense_steps_real_width", "timing": "torch.profiler device time (count: per launch of 20, "
           "the mean over the records kept; pairs: the sum of its two passes' per-launch means), per call "
           "(composed, earlier: 20; plain, library: 5); event_ms: CUDA events over 50 back-to-back bound calls, "
@@ -1375,20 +1533,55 @@ def phase_count(torch, np, engine, d, host_s):
     return rec
 
 
+def timed_pairs(obs, engine):
+    """``engine.pairs()`` under an obs capture: the result, its wall time,
+    the kinds of its retries, and the time split by the engine's spans into
+    what runs before the first chunk loop (the result-size estimate, the
+    buffer), the chunk loops (``engine.pairs`` spans: launches and the read
+    of ``offset`` at each pass's end) and what follows them (the copy of the
+    pairs to the host and the per-point ``bincount``)."""
+    with obs.capture() as cap:
+        with obs.span("smoke.pairs", "smoke"):
+            res = engine.pairs()
+    outer = cap.spans(name="smoke.pairs")[0]
+    loops = cap.spans(name="engine.pairs")
+    last = max(e.ts_us + e.dur_us for e in loops)
+    split = {"before_loops_s": (min(e.ts_us for e in loops) - outer.ts_us) / 1e6,
+             "loops_s": sum(e.dur_us for e in loops) / 1e6,
+             "after_loops_s": (outer.ts_us + outer.dur_us - last) / 1e6}
+    kinds = [e.attrs["kind"] for e in cap.spans(name="engine.pairs.retry")]
+    return res, outer.dur_us / 1e6, kinds, split
+
+
 def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
     """CoocTexture: the indexed tier's count and pairs, then the dense
     tier's (``dense_engine``, built beforehand: its host plan took
-    ``dense_host_s``), whose count must launch the fused count kernel once
-    per chunk and nothing else, and whose pairs the fused pairs kernel twice
-    per chunk and nothing else but the result-size estimate's K3."""
+    ``dense_host_s``).  Each count must launch its tier's fused count
+    kernel once per chunk and nothing else, and each pairs its tier's fused
+    pairs kernel twice per chunk and nothing else but the result-size
+    estimate's K1 (indexed) or K3 (dense)."""
+    from repro_torch import obs
     from repro_torch.kernels import dense_tile, distance_tile
 
+    def launched(before):
+        return {k: v - before[k] for k, v in {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}.items()}
+
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     t0 = time.perf_counter()
     rc = engine.count()
     count_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rp = engine.pairs()
-    pairs_s = time.perf_counter() - t0
+    grew = launched(before)
+    check(grew == {k: rc.stats.num_chunks if k == SCATTER[0] else 0 for k in grew},
+          f"the indexed count ran {rc.stats.num_chunks} chunks and launched {grew}")
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
+    rp, pairs_s, kinds, split = timed_pairs(obs, engine)
+    indexed_launches = launched(before)
+    est = indexed_launches["tile_pair_distance"]  # the result-size estimate's K1 (ops.tile_counts chunks)
+    check(est > 0 and indexed_launches == {
+        k: 2 * rp.stats.num_device_dispatches if k == PAIRS[0] else est if k == "tile_pair_distance" else 0
+        for k in indexed_launches},
+        f"the indexed pairs ran {rp.stats.num_device_dispatches} chunks and launched {indexed_launches}")
+    check(rp.stats.overflow_retries == len(kinds), f"retries {rp.stats.overflow_retries} != retry events {kinds}")
     check(rp.pairs.shape == (rc.stats.num_results, 2), "pairs count != count() sum")
     check(np.array_equal(rp.counts, rc.counts), "pairs() counts != count() counts")
     pr = torch.from_numpy(rp.pairs).cuda().long()
@@ -1397,9 +1590,7 @@ def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
     rev = torch.sort(pr[:, 1] * n + pr[:, 0]).values
     check(torch.equal(fwd, rev), "pair set is not symmetric")
     check(int(torch.unique_consecutive(fwd).numel()) == fwd.numel(), "duplicate pairs")
-
-    def launched(before):
-        return {k: v - before[k] for k, v in {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}.items()}
+    del pr, fwd, rev
 
     before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     torch.cuda.synchronize()
@@ -1410,9 +1601,7 @@ def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
     check(count_launches == {k: rd.stats.num_chunks if k == "dense_count_scatter" else 0 for k in count_launches},
           f"the dense count ran {rd.stats.num_chunks} chunks and launched {count_launches}")
     before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
-    t0 = time.perf_counter()
-    rdp = dense_engine.pairs()
-    dense_pairs_s = time.perf_counter() - t0
+    rdp, dense_pairs_s, dense_kinds, dense_split = timed_pairs(obs, dense_engine)
     pairs_launches = launched(before)
     est = pairs_launches["dense_tile_distance"]  # the result-size estimate's K3 (ops.tile_counts chunks)
     check(est > 0 and pairs_launches == {
@@ -1433,12 +1622,14 @@ def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
     rec = {
         "phase": "pairs", "dataset": "CoocTexture", "points": int(n), "dims": int(d.shape[1]),
         "eps": COOC_EPS, "results": rc.stats.num_results, "tile_pairs": rc.stats.num_tile_pairs_evaluated,
-        "count_s": count_s, "pairs_s": pairs_s,
-        "overflow_retries": rp.stats.overflow_retries, "pairs_capacity": rp.stats.pairs_capacity,
+        "count_s": count_s, "count_chunks": rc.stats.num_chunks, "pairs_s": pairs_s, "pairs_split": split,
+        "overflow_retries": rp.stats.overflow_retries, "retry_kinds": kinds, "pairs_capacity": rp.stats.pairs_capacity,
         "pairs_chunks": rp.stats.num_chunks, "pairs_dispatches": rp.stats.num_device_dispatches,
+        "pairs_launches": {k: v for k, v in indexed_launches.items() if v},
         "dense_host_plan_s": dense_host_s, "dense_count_s": dense_s, "dense_count_chunks": rd.stats.num_chunks,
         "dense_count_launches": {k: v for k, v in count_launches.items() if v},
-        "dense_pairs_s": dense_pairs_s, "dense_overflow_retries": rdp.stats.overflow_retries,
+        "dense_pairs_s": dense_pairs_s, "dense_pairs_split": dense_split,
+        "dense_overflow_retries": rdp.stats.overflow_retries, "dense_retry_kinds": dense_kinds,
         "dense_pairs_capacity": rdp.stats.pairs_capacity, "dense_pairs_dispatches": rdp.stats.num_device_dispatches,
         "dense_pairs_launches": {k: v for k, v in pairs_launches.items() if v},
         "dense_tile_pairs": rd.stats.num_tile_pairs_evaluated, "dense_execution": rd.stats.execution,
@@ -1562,12 +1753,16 @@ def profile_window(torch, device, window, step, span, kernel, label):
     }
 
 
-def phase_profile(torch, engine, dense_engine, n_chunks=400):
+def phase_profile(torch, engine, dense_engine, cooc_engine, n_chunks=400):
     """Where a chunk's time goes on the main path: a window of Syn16D2M
     count chunks (K1's fused kernel only), of CoocTexture's dense count
     chunks and of its dense pairs chunks (K3 / K4's fused kernel only: one
-    launch per count chunk, two per pairs chunk), each run as the engine
-    runs it (``profile_window``)."""
+    launch per count chunk, two per pairs chunk), and of CoocTexture's
+    indexed pairs chunks (K2's fused kernel only, two launches per chunk),
+    each run as the engine runs it (``profile_window``).  In the pairs
+    windows every hit lands (hit_cap is the most a chunk can hold, as
+    after the engine's retry); the window's first run lands below cap, the
+    later ones in the padding."""
     from repro_torch.core.engine import count_step, pairs_step
     from repro_torch.kernels import ops
 
@@ -1606,6 +1801,21 @@ def phase_profile(torch, engine, dense_engine, n_chunks=400):
                                              "CoocTexture dense pairs")
     rec["cooc_dense_pairs"]["hits_per_chunk"] = int(offset) / (3 * len(window))
     del buf
+
+    snap, cfg, eng = cooc_engine.snapshot, cooc_engine.config, cooc_engine.engine
+    t = snap.tiles.shape[1]
+    hit_cap = eng.pairs_chunk * t * t
+    buf = torch.zeros((snap.num_points * 700 + hit_cap, 2), dtype=torch.int32, device="cuda")
+    offset.zero_()
+    max_hits.zero_()
+    step = pairs_step(buf, offset, max_hits, snap.tiles, snap.tile_len, snap.tile_start, snap.point_order, cfg.eps,
+                      hit_cap=hit_cap, dim_block=cfg.dim_block, backend=ops.backend_name("indexed", cfg.use_pallas),
+                      chunk=eng.pairs_chunk, num_dims=snap.num_dims)
+    window = middle(snap.chunks(eng.pairs_chunk))
+    rec["cooc_indexed_pairs"] = profile_window(torch, snap.device, window, step, "engine.pairs.chunk", K1_KERNEL,
+                                               "CoocTexture indexed pairs")
+    rec["cooc_indexed_pairs"]["hits_per_chunk"] = int(offset) / (3 * len(window))
+    del buf
     emit(rec)
     return rec
 
@@ -1632,6 +1842,7 @@ def main() -> int:
     fns = kernel_fns()
     emit({"phase": "kernels_sweep", **phase_sweep(torch, np, fns)})
     phase_k1_sweep(torch, np)
+    phase_k2_sweep(torch, np)
     phase_dense_sweep(torch, np)
     phase_attention_sweep(torch, np, flash_attention)
 
@@ -1679,12 +1890,15 @@ def main() -> int:
     syn_tiles, syn_lens, syn_pa, syn_pb, syn_n = chunk_of(syn_snap, syn_snap.plan, eng_cfg.count_chunk, syn)
     fused = phase_fused_step(torch, syn_tiles, syn_lens, syn_snap.tile_start, syn_snap.num_points,
                              syn_pa, syn_pb, syn_n, SYN_EPS, db, syn_cfg.shortc, "Syn16D2M indexed chunk")
+    indexed_pairs = phase_indexed_pairs_step(
+        torch, (cooc_snap.tiles, cooc_snap.tile_len, cooc_snap.tile_start), cooc_snap.point_order,
+        *inputs["tile_pair_distance_mask"][2:4], int(cooc.shape[1]), COOC_EPS, db, "CoocTexture indexed chunk")
     steps = phase_dense_steps(
         torch, (cooc_dense.tiles, cooc_dense.tile_len, cooc_dense.tile_start), cooc_snap.point_order,
         cooc_snap.num_points, inputs["dense_tile_distance"][2:4], inputs["dense_tile_distance_mask"][2:4],
         int(cooc.shape[1]), COOC_EPS, db, "CoocTexture dense chunk")
     attn = phase_attention(torch, np, flash_attention)
-    phase_profile(torch, syn_engine, dense_engine)  # before the main path: no profiler session after it
+    phase_profile(torch, syn_engine, dense_engine, cooc_engine)  # before the main path: no profiler session after it
 
     # the main path: counters from 0, phases 3 and 4, counters read after
     for mod in (distance_tile, dense_tile):
@@ -1698,8 +1912,9 @@ def main() -> int:
     phase_wide_dense(torch, np, SelfJoinConfig, SelfJoinEngine, paper_dataset)
     launches = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     emit({"phase": "launches", "phase_3": after_count, "phases_3_4": launches})
-    for name in ("tile_pair_distance_tile_eval", "dense_tile_distance_tile_eval", "dense_tile_distance_mask"):
-        # the earlier kernels, and K4 per pair: the dense pairs step runs epilogue (c) instead
+    for name in ("tile_pair_distance_tile_eval", "dense_tile_distance_tile_eval", "tile_pair_distance_mask",
+                 "dense_tile_distance_mask"):
+        # the earlier kernels, and K2 / K4 per pair: the pairs steps run epilogue (c) instead
         check(launches.pop(name) == 0, f"the main path launched {name}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
@@ -1712,15 +1927,16 @@ def main() -> int:
          "library_ms": real[name]["library_ms"], "timing": "torch.profiler",
          **({"earlier_ms": real[name]["earlier_ms"], "earlier": real[name]["earlier"]}
             if "earlier_ms" in real[name] else {})}
-        for name in ("tile_pair_distance", "tile_pair_distance_mask", "dense_tile_distance")
+        for name in ("tile_pair_distance", "dense_tile_distance")
     ]
-    rows.insert(1, {
-        "name": SCATTER[0], "route": "cuda", "source": SCATTER[1], "replaces": SCATTER[2],
-        "launches": launches[SCATTER[0]], "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
-        "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
-        "library_ms": fused["library_ms"], "earlier_ms": fused["earlier_ms"], "earlier": fused["earlier"],
-        "timing": "torch.profiler",
-    })
+    # K2 per pair runs nowhere on the main path: its fused pairs step stands in its row
+    for at, (name, source, replaces), r in ((1, SCATTER, fused), (2, PAIRS, indexed_pairs)):
+        rows.insert(at, {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "earlier_ms": r["earlier_ms"],
+            "earlier": r["earlier"], "timing": "torch.profiler",
+        })
     for name, (source, replaces) in DENSE_STEPS.items():
         s = steps[name]
         rows.append({

@@ -13,10 +13,10 @@ in the paper; everything downstream runs on the snapshot's device:
                   uses ``index_add_``;
   pairs        -- compaction of the hits into a preallocated buffer, in
                   place, with the exact overflow accounting of the JAX
-                  package: on the card the dense tier's K4 writes them
-                  itself (two launches per chunk, no mask in device
-                  memory); the indexed tier and the CPU run the rank-select
-                  over the hit mask.
+                  package: on the card K2 (indexed) and K4 (dense) write
+                  them themselves, in the reference's order (two launches
+                  per chunk, no mask in device memory); the CPU runs the
+                  reference's rank-select over the hit mask.
 
 The candidate tile-pair list runs in fixed-size zero-padded chunks of the
 same sizes as in the JAX package, so chunk counts, dispatch counts, the
@@ -196,15 +196,18 @@ def pairs_step(
     state (``buf``, ``offset``, ``max_chunk_hits`` at ``hit_cap``), the
     engine's one entry to it.
 
-    On the card the dense tier binds its fused kernel once (a
-    ``dense_tile.DensePairsCompact`` for chunks of up to ``chunk`` pairs):
-    a chunk costs two launches, which write its hits into ``buf`` in the
-    reference's order with no mask in device memory.  The indexed tier and
-    the CPU call ``pairs_chunk_step``.  Reads only the backend and the
-    device.
+    On the card each tier binds its fused kernel once for chunks of up to
+    ``chunk`` pairs (a ``distance_tile.PairsCompact`` indexed, a
+    ``dense_tile.DensePairsCompact`` dense): a chunk costs two launches,
+    which write its hits into ``buf`` in the reference's order with no
+    mask in device memory.  ``tile_start`` / ``point_order`` are whatever
+    position tables the tiles index (the self-join's, or combined query |
+    data tables).  The CPU calls ``pairs_chunk_step``.  Reads only the
+    backend and the device.
     """
-    if tiles.device.type == "cuda" and backend in ("dense", "dense_jnp"):
-        return dense_tile.DensePairsCompact(
+    if tiles.device.type == "cuda" and backend in ops.BACKENDS:
+        bound = distance_tile.PairsCompact if backend in ("pallas", "jnp") else dense_tile.DensePairsCompact
+        return bound(
             buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps,
             hit_cap=hit_cap, chunk=chunk, dim_block=dim_block, num_dims=num_dims,
         )

@@ -14,7 +14,8 @@
 // d2 element, against 2 x 4 KB of tiles that L2 holds (the plan walks every B
 // tile for one A tile in a row): fp32 issue, not HBM, except where a mask or
 // many hits are written.  The design is K1's (distance_tile_counts.cu; its
-// staging and accumulation live in tile_stage.cuh) without SHORTC:
+// staging, accumulation, mask and pass-2 writes live in tile_stage.cuh)
+// without SHORTC:
 //
 //   * real dims only: each dim block's k loop runs over [k0, min(k0 +
 //     dim_block, num_dims)); blocks wholly in the padding fold to d2
@@ -62,13 +63,6 @@ namespace dense {
 
 using namespace tile_stage;
 
-enum Mode : int {
-  kPerPair = 0,  // (a): counts (P, t), optional mask (P, t, t)
-  kScatter = 1,  // (b): the count chunk step
-  kHits = 2,     // (c) pass 1: row counts and hits per pair
-  kWrite = 3,    // (c) pass 2: the hits, in rank order, into buf
-};
-
 struct Args {
   const float* tiles;        // (num_tiles, t, n_pad)
   const int* tile_len;       // (num_tiles,)
@@ -93,57 +87,11 @@ struct Args {
   int* pair_hits;            // (c): (real,) hits of each pair, pass 1 -> 2
 };
 
-constexpr unsigned kFull = 0xffffffffu;
-
 // the dense tier's eps test: the clamped matmul identity (dense_tile.py:78)
-__device__ __forceinline__ bool within(float d2, float eps2) { return fmaxf(d2, 0.f) <= eps2; }
-
-// Pass 2: the first pair at or after q with a hit, while the chunk rank
-// `base` of its first hit is below hit_cap (pairs without hits move no rank).
-__device__ __forceinline__ int next_landing(const Args& a, int q, int end, int base) {
-  if (base >= a.hit_cap) return end;
-  while (q < end && a.pair_hits[q] == 0) ++q;
-  return q;
-}
-
-// Epilogue (a)'s mask: row r's hits from one ballot per (i, j), written as
-// 4-byte words by the 16 threads of the row (byte stores where t % 4 != 0).
-template <int MT>
-__device__ __forceinline__ void write_mask(const float (&d2)[MT][MT], int8_t* mask_p, int t, int la, int lb,
-                                           float eps2, int ty, int tx) {
-  constexpr int kWordsPerThread = (MT + 3) / 4;  // a row has t / 4 <= 4 MT words
-  const unsigned shift = kSide * (ty & 1);       // the two rows of a warp are its two half-warps
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = ty + kSide * i;
-    unsigned hb[MT];
-#pragma unroll
-    for (int j = 0; j < MT; ++j)
-      hb[j] = (__ballot_sync(kFull, r < la && tx + kSide * j < lb && within(d2[i][j], eps2)) >> shift) & 0xffffu;
-    if (r >= t) continue;
-    int8_t* row = mask_p + (size_t)r * t;
-    if ((t & 3) == 0) {
-#pragma unroll
-      for (int k = 0; k < kWordsPerThread; ++k) {
-        const int w = tx + kSide * k;  // cols 4 w .. 4 w + 3: bits 4 (w & 3).. of hb[w / 4]
-        if (w < t / 4) {
-          unsigned h = 0;
-#pragma unroll
-          for (int j = 0; j < MT; ++j)
-            if (j == (w >> 2)) h = hb[j];
-          h = (h >> (4 * (tx & 3))) & 0xfu;
-          reinterpret_cast<unsigned*>(row)[w] = (h & 1u) | ((h & 2u) << 7) | ((h & 4u) << 14) | ((h & 8u) << 21);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < MT; ++j) {
-        const int c = tx + kSide * j;
-        if (c < t) row[c] = (int8_t)((hb[j] >> tx) & 1u);
-      }
-    }
-  }
-}
+struct Within {
+  float eps2;
+  __device__ __forceinline__ bool operator()(float d2) const { return fmaxf(d2, 0.f) <= eps2; }
+};
 
 // KD = 0: any shape (a.slab > 0: staged in slices).  KD = 16, the fast path
 // (MT = 4): one dim block (n_pad == dim_block) holding num_dims <= 16, 16-byte
@@ -153,7 +101,6 @@ template <int MT, int MODE, int KD>
 __global__ void __launch_bounds__(kThreads) dense_kernel(const Args a) {
   constexpr int RS = MT * kSide;  // rows / cols covered by the thread grid (>= t)
   constexpr int kWords = (MT + 3) / 4;
-  constexpr int kSeg = (RS + 31) / 32;  // 32-row segments of a tile (pass 2's row scan)
   extern __shared__ __align__(16) float smem[];
   const int pitch = KD > 0 ? KD + 4 : a.pitch;
   float* a_s = smem;                      // (RS, pitch): the run's A tile
@@ -215,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Args a) {
 
   const int db = a.dim_block;
   const int real_blocks = KD > 0 ? 1 : (a.num_dims + db - 1) / db;
-  const float eps2 = a.eps2;
+  const Within hit{a.eps2};
   const size_t tile_elems = (size_t)t * a.n_pad;
 
   int cur_a = -1;
@@ -332,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < MT; ++j) cnt[i] += (tx + kSide * j < lb && within(d2[i][j], eps2)) ? 1 : 0;
+        for (int j = 0; j < MT; ++j) cnt[i] += (tx + kSide * j < lb && hit(d2[i][j])) ? 1 : 0;
     } else if (MODE == kPerPair || MODE == kHits) {
       unsigned packed[kWords];
 #pragma unroll
@@ -341,7 +288,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Args a) {
       for (int i = 0; i < MT; ++i) {
         unsigned c = 0;
 #pragma unroll
-        for (int j = 0; j < MT; ++j) c += (tx + kSide * j < lb && within(d2[i][j], eps2)) ? 1u : 0u;
+        for (int j = 0; j < MT; ++j) c += (tx + kSide * j < lb && hit(d2[i][j])) ? 1u : 0u;
         packed[i / 4] += c << (8 * (i % 4));
       }
 #pragma unroll
@@ -363,43 +310,9 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Args a) {
         prev_slot = it & 1;
       }
       if (MODE == kPerPair && a.mask != nullptr)
-        write_mask<MT>(d2, a.mask + (size_t)p * t * t, t, la, lb, eps2, ty, tx);
+        write_mask<MT>(d2, a.mask + (size_t)p * t * t, t, la, lb, hit, ty, tx);
     } else {  // kWrite
-      // the chunk rank of each of this thread's rows' first hit: base plus an
-      // exclusive scan of pass 1's row counts (every warp scans them itself)
-      const int* rc = a.counts + (size_t)p * t;
-      int ex[kSeg];
-      int run = 0;
-#pragma unroll
-      for (int e = 0; e < kSeg; ++e) {
-        const int r = 32 * e + lane;
-        const int v = r < t ? rc[r] : 0;
-        int incl = v;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int u = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += u;
-        }
-        ex[e] = run + incl - v;
-        run += __shfl_sync(kFull, incl, 31);
-      }
-      const int sb = a.tile_start[tb];
-      const unsigned shift = kSide * (ty & 1);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        // row ty + 16 i is lane ty + 16 (i & 1) of segment i / 2
-        int rank = base + __shfl_sync(kFull, ex[i >> 1], ty + kSide * (i & 1));
-        const bool row_ok = ty + kSide * i < la;
-#pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          const int c = tx + kSide * j;
-          const bool h = row_ok && c < lb && within(d2[i][j], eps2);
-          const unsigned half = (__ballot_sync(kFull, h) >> shift) & 0xffffu;
-          const int r_hit = rank + __popc(half & ((1u << tx) - 1u));
-          if (h && r_hit < a.hit_cap) a.buf[woff + r_hit] = make_int2(a_id[i], a.point_order[sb + c]);
-          rank += __popc(half);
-        }
-      }
+      write_hits<MT>(d2, a, p, tb, t, la, lb, a_id, base, woff, hit, ty, tx, lane);
     }
     p = nxt;
     base = next_base;

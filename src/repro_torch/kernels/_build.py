@@ -46,8 +46,10 @@ SIGNATURES = {
         "distance_tile_mask": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     },
     "distance_tile_counts": {
-        "distance_tile_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P],
+        "distance_tile_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _I, _P],
         "distance_tile_count_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _I, _P],
+        "distance_tile_pairs_compact": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _I,
+                                        _P],
     },
     "dense_tile": {
         "dense_tile_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],

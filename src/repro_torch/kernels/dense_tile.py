@@ -39,6 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.distance_tile import (
     K1_MAX_SMEM,
     K1_SLAB,
+    PairsCompact,
     _dims,
     _k1_pitch,
     blocked_eval,
@@ -46,6 +47,7 @@ from repro_torch.kernels.distance_tile import (
     check_step_tables,
     eps_squared,
     scatter_counts,
+    write_ranked_hits,
 )
 
 # kernel launches, by kernel (reset by callers): each wrapper counts its own
@@ -155,31 +157,17 @@ def dense_count_scatter_plain(counts_sorted, tiles, tile_len, tile_start, pa, pb
 def dense_pairs_compact_plain(buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, pa, pb,
                               real, eps, *, hit_cap, dim_block, num_dims=None):
     """Plain version of the dense pairs chunk step, in place, by the fused
-    kernel's own algorithm: each pair's hit total, their exclusive scan, and
-    every hit written at ``min(offset, cap) + base[p] + (its index among
-    pair p's hits in row-major order)`` where that rank is below ``hit_cap``;
-    then ``offset += hits``, ``max_chunk_hits = max(max_chunk_hits, hits)``.
-    Rows of ``buf`` no hit lands on are left as they were."""
+    kernel's own algorithm: K4's plain version for the row counts and the
+    mask, then ``distance_tile.write_ranked_hits`` (each pair's hit total,
+    their exclusive scan, every hit written at ``min(offset, cap) + base[p]
+    + (its index among pair p's hits in row-major order)`` where that rank
+    is below ``hit_cap``; then ``offset += hits``, ``max_chunk_hits =
+    max(max_chunk_hits, hits)``).  Rows of ``buf`` no hit lands on are left
+    as they were."""
     counts, mask = dense_tile_distance_plain(tiles, tile_len, pa, pb, eps=eps, dim_block=dim_block,
                                              return_mask=True, num_dims=num_dims)
-    t = tiles.shape[1]
-    cap = buf.shape[0] - hit_cap
-    pair_hits = counts[:real].sum(1, dtype=torch.int32)
-    base = torch.cumsum(pair_hits, 0, dtype=torch.int32) - pair_hits      # exclusive
-    hits = mask[:real].reshape(real, t * t).bool()
-    p_, flat = hits.nonzero(as_tuple=True)                                 # row-major (p, i, j) order
-    within = torch.cumsum(hits, 1, dtype=torch.int32)[p_, flat] - 1        # rank inside the pair
-    rank = base[p_] + within
-    land = rank < hit_cap
-    p_, flat, rank = p_[land], flat[land], rank[land].long()
-    rows_a = tile_start[pa[p_].long()].long() + flat // t
-    rows_b = tile_start[pb[p_].long()].long() + flat % t
-    block = torch.stack([point_order[rows_a.long()], point_order[rows_b.long()]], dim=1)
-    woff = torch.clamp(offset, max=cap).long()
-    buf.index_copy_(0, woff + rank, block)
-    nh = pair_hits.sum(dtype=torch.int32)
-    offset += nh
-    torch.maximum(max_chunk_hits, nh, out=max_chunk_hits)
+    write_ranked_hits(buf, offset, max_chunk_hits, counts, mask, tile_start, point_order, pa, pb, real,
+                      hit_cap=hit_cap)
 
 
 class DenseCountScatter:
@@ -217,52 +205,20 @@ class DenseCountScatter:
         LAUNCHES["dense_count_scatter"] += 1
 
 
-class DensePairsCompact:
-    """The dense pairs chunk step bound to one pass's state on the card.
+class DensePairsCompact(PairsCompact):
+    """The dense pairs chunk step bound to one pass's state on the card:
+    ``distance_tile.PairsCompact``'s contract, with the dense tier's kernel.
 
-    ``buf (cap + hit_cap, 2) int32``, ``offset`` and ``max_chunk_hits`` (one
-    int32 each) are the pass's running state, as in
-    ``engine.pairs_chunk_step``; ``chunk`` is the longest chunk the pass
-    will give (the scratch of pass 1 -> pass 2 is sized for it).  Each
-    ``step(pa, pb, real)`` is two launches of ``dense_tile_pairs_compact``
-    (``csrc/dense_tile_fused.cu`` epilogue (c)): the chunk's hits of rank
-    below ``hit_cap`` land in ``buf`` at ``min(offset, cap)`` in the
-    reference's order, and ``offset`` / ``max_chunk_hits`` move on the
-    device.  The caller keeps ``tiles``'s device current while it calls.
+    Each ``step(pa, pb, real)`` is two launches of
+    ``dense_tile_pairs_compact`` (``csrc/dense_tile_fused.cu`` epilogue (c),
+    no SHORTC, the clamped eps test): the chunk's hits of rank below
+    ``hit_cap`` land in ``buf`` at ``min(offset, cap)`` in the reference's
+    order, and ``offset`` / ``max_chunk_hits`` move on the device.
     """
 
-    __slots__ = ("_fn", "_tables", "_args", "_tail", "_stream", "_device", "_chunk")
-
-    def __init__(self, buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps, *, hit_cap,
-                 chunk, dim_block, num_dims=None, max_ctas=0):
-        n = check_step_tables("DensePairsCompact", tiles, tile_len, tile_start, dim_block, num_dims,
-                              buf=buf, offset=offset, max_chunk_hits=max_chunk_hits, point_order=point_order)
-        if buf.dim() != 2 or buf.shape[1] != 2 or not 1 <= hit_cap <= buf.shape[0] or buf.data_ptr() % 8:
-            raise ValueError(f"buf must be (cap + hit_cap, 2) with hit_cap={hit_cap} >= 1, got {tuple(buf.shape)}")
-        if chunk < 1:
-            raise ValueError(f"chunk must be positive, got {chunk}")
-        t = tiles.shape[1]
-        scratch = torch.empty(1 + chunk + chunk * t, dtype=torch.int32, device=tiles.device)
-        self._fn = _fn("dense_tile_pairs_compact")
-        self._tables = (tiles, tile_len, tile_start, point_order, buf, offset, max_chunk_hits, scratch)
-        self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr(), point_order.data_ptr())
-        self._tail = (t, tiles.shape[2], n, dim_block, eps_squared(eps), buf.data_ptr(),
-                      buf.shape[0] - hit_cap, int(hit_cap), offset.data_ptr(), max_chunk_hits.data_ptr(),
-                      scratch.data_ptr(), int(max_ctas))
-        self._stream = _stream(tiles.device)
-        self._device = tiles.device
-        self._chunk = chunk
-
-    def __call__(self, pa, pb, real) -> None:
-        check_chunk(pa, pb, real, self._device)
-        if real > self._chunk:
-            raise ValueError(f"real={real} exceeds the bound chunk length {self._chunk}")
-        if real == 0:
-            return
-        err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
-        if err != 0:
-            raise RuntimeError(f"dense_tile_pairs_compact: CUDA launch failed with cudaError {err}")
-        LAUNCHES["dense_pairs_compact"] += 2
+    __slots__ = ()
+    _SOURCE = ("dense_tile_fused", "dense_tile_pairs_compact")
+    _LAUNCHES, _KEY = LAUNCHES, "dense_pairs_compact"
 
 
 def dense_count_scatter(counts_sorted, tiles, tile_len, tile_start, pa, pb, real, eps, *, dim_block,

@@ -14,19 +14,29 @@ Routes (``_route``, by device and mode only; no fallback between them):
   * CPU tensors                -> ``tile_pair_distance_plain``, the same
     blocked algorithm in plain PyTorch (the twin of
     ``repro.kernels.ops._eval_jnp``);
-  * CUDA, counts (K1)          -> ``csrc/distance_tile_counts.cu``, epilogue
-    (a), over the data's real dims only (``num_dims``);
-  * CUDA, mask (K2)            -> ``csrc/distance_tile.cu`` (the templated
-    body ``csrc/tile_eval.cuh``).
+  * CUDA, counts (K1) and mask (K2) -> ``csrc/distance_tile_counts.cu``,
+    epilogue (a), over the data's real dims only (``num_dims``).
 
-``tile_pair_count_scatter`` is the indexed tier's whole count chunk step
-(the counterpart of ``repro.core.engine.count_chunk_step``): on CUDA one
-launch of ``csrc/distance_tile_counts.cu``'s epilogue (b), which scatters
-the counts into the grid-sorted counts vector itself; on the CPU its plain
-version, ``tile_pair_distance_plain`` followed by an ``index_add_``.
-``tile_pair_distance_tile_eval`` launches the counts kernel of the
-``tile_eval.cuh`` body that K1 ran before, for comparing the two on the
-card; nothing on the main path calls it.
+The indexed tier's chunk steps are fused into the same kernel and bound
+once per pass (tables checked, kernel and stream looked up):
+
+  * ``CountScatter``  -- epilogue (b): the count chunk step (the
+    counterpart of ``repro.core.engine.count_chunk_step``), one launch that
+    scatters the counts into the grid-sorted counts vector itself; its
+    plain version is ``tile_pair_count_scatter_plain``
+    (``tile_pair_distance_plain`` followed by an ``index_add_``), and
+    ``tile_pair_count_scatter`` runs one chunk of either;
+  * ``PairsCompact``  -- epilogue (c): the pairs chunk step (the
+    counterpart of ``repro.core.engine.pairs_chunk_step``), two launches
+    that write the hits into the pair buffer in the reference's order with
+    no mask in device memory; its plain version is
+    ``tile_pair_pairs_compact_plain`` (per-pair hit totals, an exclusive
+    scan, an ordered write: the kernel's algorithm, not the reference's
+    rank-select).
+
+``tile_pair_distance_tile_eval`` launches the kernel K1 / K2 ran before
+(``csrc/distance_tile.cu``, the ``tile_eval.cuh`` body), for comparing the
+two on the card; nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -41,8 +51,9 @@ NEG_LARGE = 3.0e38  # invalid lanes in the SHORTC min (distance_tile.py:34)
 LAUNCHES = {
     "tile_pair_distance": 0,            # K1, csrc/distance_tile_counts.cu, per pair
     "tile_pair_count_scatter": 0,       # K1, csrc/distance_tile_counts.cu, fused chunk step
-    "tile_pair_distance_mask": 0,       # K2, csrc/distance_tile.cu
-    "tile_pair_distance_tile_eval": 0,  # K1's tile_eval.cuh kernel, csrc/distance_tile.cu
+    "tile_pair_distance_mask": 0,       # K2, csrc/distance_tile_counts.cu, per pair
+    "tile_pair_pairs_compact": 0,       # K2, csrc/distance_tile_counts.cu, fused pairs step: two per step
+    "tile_pair_distance_tile_eval": 0,  # K1 / K2's earlier tile_eval.cuh kernel, csrc/distance_tile.cu
 }
 
 
@@ -126,14 +137,14 @@ def tile_pair_distance_plain(tiles, tile_len, pair_a, pair_b, *, eps, dim_block,
 
 
 def _route(device, return_mask):
-    """``"plain"`` for a CPU ``device``; on CUDA ``"tile_eval"`` for the mask
-    (K2, ``csrc/distance_tile.cu``), else ``"counts"`` (K1,
-    ``csrc/distance_tile_counts.cu``).  Reads only the device and the mode."""
+    """``"plain"`` for a CPU ``device``; on CUDA ``"counts"``
+    (``csrc/distance_tile_counts.cu``) for counts (K1) and for the mask (K2)
+    alike.  Reads only the device and the mode."""
     if device.type == "cpu":
         return "plain"
     if device.type != "cuda":
         raise ValueError(f"tile_pair_distance runs on cpu or cuda tensors, not {device}")
-    return "tile_eval" if return_mask else "counts"
+    return "counts"
 
 
 def _dims(tiles, dim_block, num_dims):
@@ -161,10 +172,11 @@ def _k1_pitch(dims) -> int:
 def k1_staging(t, num_dims) -> int:
     """How ``distance_tile_counts.cu`` stages tiles (its ``choose_staging``,
     by shape only): 0 where an A tile and two B tiles of whole rows, with
-    the norms and the SHORTC partial mins, fit in a block's shared memory,
-    else ``K1_SLAB``, the width of the slices it stages instead."""
+    the norms, the SHORTC partial mins and the pairs step's two hit slots,
+    fit in a block's shared memory, else ``K1_SLAB``, the width of the
+    slices it stages instead."""
     rs = 16 * (1 if t <= 16 else 2 if t <= 32 else 4 if t <= 64 else 8)
-    whole = (3 * rs * _k1_pitch(num_dims) + 2 * rs + 8) * 4
+    whole = (3 * rs * _k1_pitch(num_dims) + 2 * rs + 10) * 4
     return 0 if whole <= K1_MAX_SMEM else K1_SLAB
 
 
@@ -176,60 +188,54 @@ def tile_pair_distance(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, re
     ``pair_a / pair_b (P,) int32``; ``n_pad % dim_block == 0``; ``num_dims``
     (default ``n_pad``) is the data's dimension count, the dims past it
     being zero padding.  Returns ``(counts (P,T) int32, skipped (P,) int32[,
-    mask (P,T,T) int8])``.  CUDA ``tiles`` launch a CUDA kernel (T <= 128,
-    see ``_route``); CPU ``tiles`` run the plain version.  ``max_ctas > 0``
-    caps K1's persistent grid on the card, so that each CTA walks a longer
-    range of pairs (it changes no result; the tests use it to put many
-    runs of ``pair_a`` in one range).
+    mask (P,T,T) int8])``.  CUDA ``tiles`` launch epilogue (a) of
+    ``csrc/distance_tile_counts.cu`` (T <= 128, see ``_route``); CPU
+    ``tiles`` run the plain version.  ``max_ctas > 0`` caps the kernel's
+    persistent grid on the card, so that each CTA walks a longer range of
+    pairs (it changes no result; the tests use it to put many runs of
+    ``pair_a`` in one range).
     """
     n = _dims(tiles, dim_block, num_dims)
-    route = _route(tiles.device, return_mask)
-    if route == "plain":
+    if _route(tiles.device, return_mask) == "plain":
         return tile_pair_distance_plain(
             tiles, tile_len, pair_a, pair_b,
             eps=eps, dim_block=dim_block, return_mask=return_mask, num_dims=n,
         )
-    if route == "tile_eval":
-        return _launch_tile_eval("distance_tile_mask", "tile_pair_distance_mask",
-                                 tiles, tile_len, pair_a, pair_b, eps, dim_block)
     _build.check_tile_args(tiles, tile_len, pair_a, pair_b)
     p, t = pair_a.shape[0], tiles.shape[1]
     counts = torch.empty((p, t), dtype=torch.int32, device=tiles.device)
     skipped = torch.empty((p,), dtype=torch.int32, device=tiles.device)
+    mask = torch.empty((p, t, t), dtype=torch.int8, device=tiles.device) if return_mask else None
     fn = _build.function("distance_tile_counts", "distance_tile_pair_counts")
     with torch.cuda.device(tiles.device):
         err = fn(tiles.data_ptr(), tile_len.data_ptr(), pair_a.data_ptr(), pair_b.data_ptr(),
                  p, t, tiles.shape[2], n, dim_block, eps_squared(eps),
-                 counts.data_ptr(), skipped.data_ptr(), int(max_ctas),
-                 torch.cuda.current_stream(tiles.device).cuda_stream)
+                 counts.data_ptr(), skipped.data_ptr(), mask.data_ptr() if return_mask else None,
+                 int(max_ctas), torch.cuda.current_stream(tiles.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"distance_tile_pair_counts: CUDA launch failed with cudaError {err}")
-    LAUNCHES["tile_pair_distance"] += 1
-    return counts, skipped
+    LAUNCHES["tile_pair_distance_mask" if return_mask else "tile_pair_distance"] += 1
+    return (counts, skipped, mask) if return_mask else (counts, skipped)
 
 
-def _launch_tile_eval(symbol, key, tiles, tile_len, pair_a, pair_b, eps, dim_block, mask=True):
-    p, t = pair_a.shape[0], tiles.shape[1]
-    outs = [torch.empty((p, t), dtype=torch.int32, device=tiles.device),   # counts
-            torch.empty((p,), dtype=torch.int32, device=tiles.device)]     # skipped
-    if mask:
-        outs.append(torch.empty((p, t, t), dtype=torch.int8, device=tiles.device))
-    _build.launch_tile_kernel("distance_tile", symbol, tiles, tile_len, pair_a, pair_b,
-                              eps_squared(eps), dim_block, outs)
-    LAUNCHES[key] += 1
-    return tuple(outs)
-
-
-def tile_pair_distance_tile_eval(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32):
-    """K1's counts on CUDA tensors through the ``tile_eval.cuh`` body
-    (``csrc/distance_tile.cu``), all ``n_pad`` dims, one block per pair: the
-    kernel K1 ran before ``csrc/distance_tile_counts.cu``, kept to compare
-    the two on the same inputs.  Returns ``(counts, skipped)``."""
+def tile_pair_distance_tile_eval(tiles, tile_len, pair_a, pair_b, *, eps, dim_block=32, return_mask=False):
+    """K1 (counts) / K2 (``return_mask``) on CUDA tensors through the
+    ``tile_eval.cuh`` body (``csrc/distance_tile.cu``), all ``n_pad`` dims,
+    one block per pair: the kernel they ran before
+    ``csrc/distance_tile_counts.cu``, kept to compare the two on the same
+    inputs.  Returns ``(counts, skipped[, mask])``."""
     _dims(tiles, dim_block, None)
     if tiles.device.type != "cuda":
         raise ValueError(f"tile_pair_distance_tile_eval runs on cuda tensors, not {tiles.device}")
-    return _launch_tile_eval("distance_tile_counts", "tile_pair_distance_tile_eval",
-                             tiles, tile_len, pair_a, pair_b, eps, dim_block, mask=False)
+    p, t = pair_a.shape[0], tiles.shape[1]
+    outs = [torch.empty((p, t), dtype=torch.int32, device=tiles.device),   # counts
+            torch.empty((p,), dtype=torch.int32, device=tiles.device)]     # skipped
+    if return_mask:
+        outs.append(torch.empty((p, t, t), dtype=torch.int8, device=tiles.device))
+    _build.launch_tile_kernel("distance_tile", "distance_tile_mask" if return_mask else "distance_tile_counts",
+                              tiles, tile_len, pair_a, pair_b, eps_squared(eps), dim_block, outs)
+    LAUNCHES["tile_pair_distance_tile_eval"] += 1
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -277,10 +283,10 @@ def check_step_tables(what, tiles, tile_len, tile_start, dim_block, num_dims, **
     errors): CUDA float32 tiles with their int32 ``tile_len`` and
     ``tile_start``, and each of ``state`` a contiguous int32 tensor on the
     same device (``skipped_tot`` and the other scalars holding one value,
-    ``counts_sorted`` (N + 1,)).  Returns ``num_dims`` (default n_pad)."""
+    ``counts_sorted`` (N + 1,)); the device is checked last, so tables of
+    the wrong type or shape are named as such on any device.  Returns
+    ``num_dims`` (default n_pad)."""
     n = _dims(tiles, dim_block, num_dims)
-    if tiles.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda tensors, not {tiles.device}")
     empty = torch.zeros(0, dtype=torch.int32, device=tiles.device)
     _build.check_tile_args(tiles, tile_len, empty, empty)
     for name, arg in (("tile_start", tile_start), *state.items()):
@@ -293,17 +299,22 @@ def check_step_tables(what, tiles, tile_len, tile_start, dim_block, num_dims, **
     for name in ("skipped_tot", "offset", "max_chunk_hits"):
         if name in state and state[name].numel() != 1:
             raise ValueError(f"{name} must hold one value")
+    if tiles.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda tensors, not {tiles.device}")
     return n
 
 
-def check_chunk(pa, pb, real, device) -> None:
+def check_chunk(pa, pb, real, device, chunk=None) -> None:
     """A chunk ``(pa, pb)`` a bound step takes: contiguous int32 on
-    ``device``, with ``0 <= real <= len``."""
+    ``device``, with ``0 <= real <= len`` and, for a step whose scratch is
+    sized for ``chunk`` pairs, ``real <= chunk``."""
     if (pa.dtype != torch.int32 or pb.dtype != torch.int32 or not pa.is_contiguous()
             or not pb.is_contiguous() or pa.device != device or pb.device != device):
         raise ValueError(f"pa and pb must be contiguous int32 tensors on {device}")
     if not 0 <= real <= min(pa.shape[0], pb.shape[0]):
         raise ValueError(f"real={real} outside 0..{min(pa.shape[0], pb.shape[0])}")
+    if chunk is not None and real > chunk:
+        raise ValueError(f"real={real} exceeds the bound chunk length {chunk}")
 
 
 class CountScatter:
@@ -361,3 +372,101 @@ def tile_pair_count_scatter(counts_sorted, skipped_tot, tiles, tile_len, tile_st
     with torch.cuda.device(tiles.device):
         CountScatter(counts_sorted, skipped_tot, tiles, tile_len, tile_start, eps,
                      dim_block=dim_block, shortc=shortc, num_dims=num_dims)(pa, pb, real)
+
+
+# ---------------------------------------------------------------------------
+# The indexed pairs chunk step.
+# ---------------------------------------------------------------------------
+
+
+def write_ranked_hits(buf, offset, max_chunk_hits, counts, mask, tile_start, point_order, pa, pb, real, *,
+                      hit_cap) -> None:
+    """The ordered write of a fused pairs step, in plain PyTorch, in place,
+    from an evaluated chunk's row counts ``(C, T)`` and hit mask ``(C, T,
+    T)``: each pair's hit total, their exclusive scan, and every hit written
+    at ``min(offset, cap) + base[p] + (its index among pair p's hits in
+    row-major order)`` where that rank is below ``hit_cap``; then ``offset
+    += hits``, ``max_chunk_hits = max(max_chunk_hits, hits)``.  Rows of
+    ``buf`` no hit lands on are left as they were."""
+    t = mask.shape[1]
+    cap = buf.shape[0] - hit_cap
+    pair_hits = counts[:real].sum(1, dtype=torch.int32)
+    base = torch.cumsum(pair_hits, 0, dtype=torch.int32) - pair_hits      # exclusive
+    hits = mask[:real].reshape(real, t * t).bool()
+    p_, flat = hits.nonzero(as_tuple=True)                                 # row-major (p, i, j) order
+    within = torch.cumsum(hits, 1, dtype=torch.int32)[p_, flat] - 1        # rank inside the pair
+    rank = base[p_] + within
+    land = rank < hit_cap
+    p_, flat, rank = p_[land], flat[land], rank[land].long()
+    rows_a = tile_start[pa[p_].long()].long() + flat // t
+    rows_b = tile_start[pb[p_].long()].long() + flat % t
+    block = torch.stack([point_order[rows_a], point_order[rows_b]], dim=1)
+    woff = torch.clamp(offset, max=cap).long()
+    buf.index_copy_(0, woff + rank, block)
+    nh = pair_hits.sum(dtype=torch.int32)
+    offset += nh
+    torch.maximum(max_chunk_hits, nh, out=max_chunk_hits)
+
+
+def tile_pair_pairs_compact_plain(buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, pa, pb,
+                                  real, eps, *, hit_cap, dim_block, num_dims=None):
+    """Plain version of the indexed pairs chunk step, in place, by the fused
+    kernel's own algorithm: ``tile_pair_distance_plain`` (with SHORTC) for
+    the row counts and the mask, then ``write_ranked_hits``.  ``buf[:offset]``
+    equals the reference's rank-select (``engine.pairs_chunk_step``) row
+    for row; the tests and the smoke run use it, the engine never does."""
+    counts, _, mask = tile_pair_distance_plain(tiles, tile_len, pa, pb, eps=eps, dim_block=dim_block,
+                                               return_mask=True, num_dims=num_dims)
+    write_ranked_hits(buf, offset, max_chunk_hits, counts, mask, tile_start, point_order, pa, pb, real,
+                      hit_cap=hit_cap)
+
+
+class PairsCompact:
+    """The indexed pairs chunk step bound to one pass's state on the card.
+
+    ``buf (cap + hit_cap, 2) int32``, ``offset`` and ``max_chunk_hits`` (one
+    int32 each) are the pass's running state, as in
+    ``engine.pairs_chunk_step``; ``tile_start`` and ``point_order`` may be
+    any position tables the tiles index (the self-join's, or combined query
+    | data tables); ``chunk`` is the longest chunk the pass will give (the
+    scratch of pass 1 -> pass 2 is sized for it).  Each ``step(pa, pb,
+    real)`` is two launches of ``distance_tile_pairs_compact``
+    (``csrc/distance_tile_counts.cu`` epilogue (c)): the chunk's hits of
+    rank below ``hit_cap`` land in ``buf`` at ``min(offset, cap)`` in the
+    reference's order, and ``offset`` / ``max_chunk_hits`` move on the
+    device.  The caller keeps ``tiles``'s device current while it calls.
+    """
+
+    __slots__ = ("_fn", "_tables", "_args", "_tail", "_stream", "_device", "_chunk")
+    _SOURCE = ("distance_tile_counts", "distance_tile_pairs_compact")
+    _LAUNCHES, _KEY = LAUNCHES, "tile_pair_pairs_compact"
+
+    def __init__(self, buf, offset, max_chunk_hits, tiles, tile_len, tile_start, point_order, eps, *, hit_cap,
+                 chunk, dim_block, num_dims=None, max_ctas=0):
+        if buf.dim() != 2 or buf.shape[1] != 2 or not 1 <= hit_cap <= buf.shape[0] or buf.data_ptr() % 8:
+            raise ValueError(f"buf must be (cap + hit_cap, 2) with hit_cap={hit_cap} >= 1, got {tuple(buf.shape)}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        n = check_step_tables(type(self).__name__, tiles, tile_len, tile_start, dim_block, num_dims,
+                              buf=buf, offset=offset, max_chunk_hits=max_chunk_hits, point_order=point_order)
+        t = tiles.shape[1]
+        scratch = torch.empty(1 + chunk + chunk * t, dtype=torch.int32, device=tiles.device)
+        self._fn = _build.function(*self._SOURCE)
+        # the kernel keeps raw pointers: the tensors live as long as the step
+        self._tables = (tiles, tile_len, tile_start, point_order, buf, offset, max_chunk_hits, scratch)
+        self._args = (tiles.data_ptr(), tile_len.data_ptr(), tile_start.data_ptr(), point_order.data_ptr())
+        self._tail = (t, tiles.shape[2], n, dim_block, eps_squared(eps), buf.data_ptr(),
+                      buf.shape[0] - hit_cap, int(hit_cap), offset.data_ptr(), max_chunk_hits.data_ptr(),
+                      scratch.data_ptr(), int(max_ctas))
+        self._stream = torch.cuda.current_stream(tiles.device).cuda_stream
+        self._device = tiles.device
+        self._chunk = chunk
+
+    def __call__(self, pa, pb, real) -> None:
+        check_chunk(pa, pb, real, self._device, self._chunk)
+        if real == 0:
+            return
+        err = self._fn(*self._args, pa.data_ptr(), pb.data_ptr(), real, *self._tail, self._stream)
+        if err != 0:
+            raise RuntimeError(f"{self._SOURCE[1]}: CUDA launch failed with cudaError {err}")
+        self._LAUNCHES[self._KEY] += 2

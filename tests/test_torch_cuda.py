@@ -6,15 +6,17 @@ with a card (no JAX needed, so the shared conftest is skipped):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tile inputs are 1/64-quantized, so counts, skipped blocks and masks compare
-with ``==``; K1's two epilogues (per pair, and the fused chunk step) are
+with ``==``; K1's two epilogues (per pair, and the fused count step) are
 also held against K1's earlier ``tile_eval.cuh`` kernel over
-``chip_smoke.K1_CASES``, and K3 / K4's three epilogues (per pair, the
+``chip_smoke.K1_CASES``, K2's (per pair with the mask, and the fused pairs
+step) against their plain versions and K2's earlier kernel over
+``chip_smoke.K2_CASES``, and K3 / K4's three epilogues (per pair, the
 dense count step, the dense pairs step) against their plain versions and
 K3 / K4's earlier kernel over ``chip_smoke.DENSE_CASES``; the end-to-end
 tests hold the engine on the card against the same engine on the CPU (the
-dense tier's pair arrays row for row), and check that its steps launch the
-fused kernels once per count chunk (twice per dense pairs chunk) and
-nothing else.  Flash attention compares within 2e-5 in f32 and
+pair arrays row for row), and check that its steps launch the fused
+kernels once per count chunk (twice per pairs chunk) and nothing else but
+the result-size estimate's per-pair kernel.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -32,7 +34,9 @@ from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engin
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ATTN_FULL_TOL, DENSE_CASES, K1_CASES, dense_sweep_case, k1_sweep_case  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ATTN_FULL_TOL, DENSE_CASES, K1_CASES, K2_CASES, dense_sweep_case, k1_sweep_case, k2_sweep_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,8 +126,7 @@ def test_engine_on_the_card_equals_the_cpu(cuda, mode):
     got_p = card.pairs().pairs
     want_p = host.pairs().pairs
     assert set(map(tuple, got_p.tolist())) == set(map(tuple, want_p.tolist()))
-    if card.resolve_execution().execution == "dense":  # the fused dense step writes the reference's order
-        np.testing.assert_array_equal(got_p, want_p)
+    np.testing.assert_array_equal(got_p, want_p)  # both tiers' fused steps write the reference's order
 
 
 @pytest.mark.parametrize("eps", [0.3, 0.05])
@@ -135,7 +138,60 @@ def test_k1_epilogues_equal_plain_and_earlier_kernel(cuda, case, eps):
     grew = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
     # each epilogue on three grids (chip_smoke.k1_grids), the earlier kernel once
     assert grew == {"tile_pair_distance": 3, "tile_pair_count_scatter": 3, "tile_pair_distance_mask": 0,
-                    "tile_pair_distance_tile_eval": 1}
+                    "tile_pair_pairs_compact": 0, "tile_pair_distance_tile_eval": 1}
+
+
+@pytest.mark.parametrize("eps", [0.3, 0.05])
+@pytest.mark.parametrize("case", range(len(K2_CASES)))
+def test_k2_epilogues_equal_plain_and_earlier_kernel(cuda, case, eps):
+    t, n, db, order, c, real, _ = K2_CASES[case]
+    before = dict(distance_tile.LAUNCHES)
+    k2_sweep_case(torch, np, distance_tile, t, n, db, order, c, real, eps, seed=7000 + case)
+    grew = {k: distance_tile.LAUNCHES[k] - before[k] for k in before}
+    # K2 per pair on three grids (chip_smoke.k1_grids), the pairs step from
+    # five states and in two launches on each, the earlier kernel once
+    assert grew == {"tile_pair_distance": 0, "tile_pair_count_scatter": 0, "tile_pair_distance_mask": 3,
+                    "tile_pair_pairs_compact": 30, "tile_pair_distance_tile_eval": 1}
+
+
+@pytest.mark.parametrize("n,dim_block,eps", [(16, 32, 0.15), (20, 8, 0.2), (384, 32, 0.9)])
+def test_engine_indexed_pairs_launch_only_the_fused_kernel(cuda, n, dim_block, eps):
+    """The indexed tier's pairs on the card: 16 dims in one block (the T=64
+    fast path), 20 over three blocks of 8 where SHORTC skips blocks, and 384
+    at T = 64 (staged in slices).  Small chunks fire the hit_cap retry;
+    ``pairs()`` launches the fused pairs kernel twice per chunk and nothing
+    else but the result-size estimate's K1; counts, stats and the pair
+    array equal the CPU's row for row."""
+    rng = np.random.default_rng(n + 1)
+    centers = rng.random((20, n))
+    d = centers[rng.integers(0, 20, 3000)] + rng.normal(0, 0.03, (3000, n))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, dim_block=dim_block, execution="indexed")
+    eng = EngineConfig(count_chunk=256, pairs_chunk=16)
+    card = SelfJoinEngine(d, cfg, eng, device=cuda)
+    host = SelfJoinEngine(d, cfg, eng, device="cpu")
+    snap = card.snapshot
+    buf = torch.zeros((10, 2), dtype=torch.int32, device=cuda)
+    scalars = [torch.zeros((), dtype=torch.int32, device=cuda) for _ in range(2)]
+    for backend in ("pallas", "jnp"):
+        assert isinstance(engine.pairs_step(buf, *scalars, snap.tiles, snap.tile_len, snap.tile_start,
+                                            snap.point_order, eps, hit_cap=4, dim_block=dim_block, backend=backend,
+                                            chunk=16), distance_tile.PairsCompact)
+    before = _launches()
+    got = card.pairs()
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    est = grew["tile_pair_distance"]
+    assert est > 0
+    assert grew == {k: 2 * got.stats.num_device_dispatches if k == "tile_pair_pairs_compact"
+                    else est if k == "tile_pair_distance" else 0 for k in grew}
+    want = host.pairs()
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.stats == want.stats
+    assert got.stats.overflow_retries > 0 and got.stats.num_results > len(d)
+    if n == 20:
+        assert card.count().stats.dim_blocks_skipped > 0
 
 
 def _launches():

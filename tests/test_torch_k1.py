@@ -147,10 +147,11 @@ def test_kernel_split_into_runs_equals_plain_step(grid):
 
 @pytest.mark.parametrize(
     "device,mask,route",
-    [("cpu", False, "plain"), ("cpu", True, "plain"), ("cuda", False, "counts"), ("cuda", True, "tile_eval")],
+    [("cpu", False, "plain"), ("cpu", True, "plain"), ("cuda", False, "counts"), ("cuda", True, "counts")],
 )
 def test_route_reads_device_and_mode(device, mask, route):
-    # a device object stands in for a card here: _route reads no tensor
+    # a device object stands in for a card here: _route reads no tensor.  On
+    # CUDA, K1's counts and K2's mask both run csrc/distance_tile_counts.cu
     assert distance_tile._route(torch.device(device), mask) == route
     with pytest.raises(ValueError, match="cpu or cuda"):
         distance_tile._route(torch.device("meta"), mask)
