@@ -7,7 +7,7 @@ from repro_torch.core.types import (  # noqa: F401
     SelfJoinStats,
 )
 from repro_torch.core.selfjoin import self_join  # noqa: F401
-from repro_torch.core.engine import SelfJoinEngine  # noqa: F401
+from repro_torch.core.engine import QueryPlanTables, SelfJoinEngine  # noqa: F401
 from repro_torch.core.snapshot import (  # noqa: F401
     GridSnapshot,
     make_dense_plan,
@@ -21,4 +21,12 @@ from repro_torch.core.cost import (  # noqa: F401
     indexed_join_cost,
 )
 from repro_torch.core.reorder import variance_reorder, estimate_dim_variance  # noqa: F401
-from repro_torch.core.grid import build_grid, build_tile_plan, GridIndex, TilePlan  # noqa: F401
+from repro_torch.core.grid import (  # noqa: F401
+    GridIndex,
+    QueryTilePlan,
+    TilePlan,
+    build_grid,
+    build_query_tile_plan,
+    build_tile_plan,
+)
+from repro_torch.core.tuning import KEstimate, estimate_k_costs, select_k  # noqa: F401

@@ -23,12 +23,19 @@ same sizes as in the JAX package, so chunk counts, dispatch counts, the
 ``hit_cap`` window and the retry ladder match it step for step.  The chunk
 loop reads nothing back from the device until a pass ends.
 
+The bipartite query plan (``prepare_query`` / ``count_query``, DESIGN.md
+#8) runs the same chunk steps over combined (query | data) tables: query
+tiles first, then the snapshot's data tiles, with the data side's
+positions offset by the query slots, so the fused kernels on the card take
+them as they take the self-join's tables.
+
 ``repro_torch.core.selfjoin.self_join`` is a thin wrapper over this class.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Optional, Sequence
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +43,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core import batching as batching_mod
 from repro_torch.core import cost as cost_mod
-from repro_torch.core.grid import GridIndex, TilePlan
-from repro_torch.core.snapshot import GridSnapshot
+from repro_torch.core.grid import (
+    GridIndex,
+    QueryTilePlan,
+    TilePlan,
+    build_query_tile_plan,
+    pad_axis0,
+)
+from repro_torch.core.reorder import apply_reorder
+from repro_torch.core.snapshot import Chunk, GridSnapshot, _chunk_list
 from repro_torch.core.types import (
     EngineConfig,
     SelfJoinConfig,
@@ -228,6 +242,65 @@ def _unsort_counts(counts_sorted, point_order):
     return out
 
 
+def on_card(dev: torch.device):
+    """``torch.cuda.device(dev)`` on the card, a null context on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+# ---------------------------------------------------------------------------
+# The bipartite query-plan API (DESIGN.md #8).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QueryPlanTables:
+    """Device-ready combined (query | data) tables for one bipartite batch.
+
+    Produced by ``SelfJoinEngine.prepare_query`` and consumed with one
+    layout by ``SelfJoinEngine.count_query`` (the count chunk step) and by
+    the serving tier (``repro_torch.join.QueryService``: the count *and*
+    pairs chunk steps), with ``pad_queries_to`` rounding the query side up
+    to a shape bucket so a request stream reuses a bounded set of
+    workspaces.
+
+    Layout contract (the JAX package's, array for array): positions ``[0,
+    n_slots)`` are query rows in q-sorted order (real rows first, zero
+    padding after), positions ``[n_slots, n_slots + point_rows)`` are the
+    engine's grid-sorted data points padded to the snapshot's pow2
+    ``point_rows`` bucket (pad positions are never referenced by a valid
+    lane or pair list).  ``tile_start`` and ``order`` address that combined
+    position space, so the *same* tensors serve counts mode (A-side scatter
+    into an ``(n_slots + 1,)`` vector whose last row is the sink; B-side
+    starts never read below ``n_slots``) and pairs mode (both sides decode
+    through ``order`` to original query rows / data ids).
+    """
+
+    eps: float                     # radius the plan was built for
+    nq: int                        # real query rows
+    n_slots: int                   # padded query-position space (>= nq)
+    qplan: QueryTilePlan           # the host-side plan (stats + q_order live here)
+    tiles: torch.Tensor            # (q_tile_rows + d_tile_rows, T, n_pad) f32
+    tile_len: torch.Tensor         # (q_tile_rows + d_tile_rows,) int32
+    tile_start: torch.Tensor       # combined position space (B side + n_slots)
+    order: torch.Tensor            # (n_slots + point_rows,) int32 position -> id
+    pair_a: np.ndarray             # (P,) int32 combined-table A (query-tile) index
+    pair_b: np.ndarray             # (P,) int32 combined-table B (data-tile) index
+    execution: str = "indexed"     # tier the tables realize: "indexed" | "dense"
+    cost_indexed: float = 0.0      # cost model's indexed-tier estimate
+    cost_dense: float = 0.0        # cost model's dense-tier estimate
+    num_candidates: int = 0        # point comparisons this tier will evaluate
+    _chunk_cache: Dict[int, list] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.pair_a.shape[0])
+
+    def chunks(self, chunk: int) -> List[Chunk]:
+        """Padded chunks of the candidate pair list on the tables' device,
+        cached per chunk size."""
+        return _chunk_list(self.pair_a, self.pair_b, chunk, self._chunk_cache, self.tiles.device)
+
+
 # ---------------------------------------------------------------------------
 # The engine.
 # ---------------------------------------------------------------------------
@@ -277,6 +350,31 @@ class SelfJoinEngine:
         self.engine = engine_config or EngineConfig()
         self.snapshot = snapshot
         return self
+
+    @classmethod
+    def from_prebuilt(
+        cls,
+        pts: np.ndarray,
+        perm: Optional[np.ndarray],
+        grid: Optional[GridIndex],
+        plan: Optional[TilePlan],
+        index_eps: Optional[float],
+        config: SelfJoinConfig,
+        engine_config: Optional[EngineConfig] = None,
+        *,
+        device="cuda",
+    ) -> "SelfJoinEngine":
+        """Engine over an already-built index: no REORDER, no grid build.
+
+        The persistence path of ``repro_torch.join.SimilarityIndex``: a
+        server restart loads the saved (perm, grid, plan) triple and only the
+        device placement runs again, so the restarted engine serves as the
+        one that was saved did.
+        """
+        return cls.from_snapshot(
+            GridSnapshot.from_arrays(pts, perm, grid, plan, index_eps, config, device=device),
+            engine_config,
+        )
 
     # -- snapshot management ----------------------------------------------
 
@@ -383,6 +481,174 @@ class SelfJoinEngine:
         stats.cost_indexed = dec.cost_indexed
         stats.cost_dense = dec.cost_dense
 
+    def build_query_plan(
+        self,
+        q_pts: np.ndarray,
+        eps: Optional[float] = None,
+        snapshot: Optional[GridSnapshot] = None,
+    ) -> Optional[QueryTilePlan]:
+        """Bipartite Q-tile x D-tile plan for ``q_pts`` against this index.
+
+        ``q_pts`` is in ORIGINAL coordinates; the engine applies its own
+        REORDER permutation.  With an explicit ``snapshot`` the plan is built
+        against it (the serving tier's pinned epoch); otherwise the engine's
+        resident snapshot is used, rebuilt if ``eps`` outgrows it.  Returns
+        ``None`` when the snapshot indexes no points.
+        """
+        eps = self.config.eps if eps is None else float(eps)
+        if snapshot is None:
+            if self.num_points == 0:
+                return None
+            self._ensure_index(eps)
+            snapshot = self.snapshot
+        if snapshot.num_points == 0:
+            return None
+        q_work = (
+            apply_reorder(q_pts, snapshot.perm)
+            if snapshot.perm is not None else q_pts
+        )
+        with obs.span(
+            "engine.build_query_plan", "plan",
+            nq=int(q_work.shape[0]), eps=eps,
+        ):
+            return build_query_tile_plan(
+                snapshot.grid, snapshot.plan, q_work, self.config.sortidu
+            )
+
+    def prepare_query(
+        self,
+        q_pts: np.ndarray,
+        eps: Optional[float] = None,
+        *,
+        pad_queries_to: Optional[int] = None,
+        snapshot: Optional[GridSnapshot] = None,
+    ) -> Optional[QueryPlanTables]:
+        """Build the combined (query | data) tables for ``q_pts`` on the
+        snapshot's device.
+
+        The query-plan API (DESIGN.md #8): everything between the host-side
+        ``build_query_plan`` and the chunk steps -- the cost model's tier
+        choice, query tiling on the device, the concatenated (Q | D) tile
+        table, the combined position -> original-id map, and the B-side
+        index offset -- shared by ``count_query`` and the serving tier.
+
+        ``pad_queries_to`` rounds the *query side* of every table up to that
+        many rows (q-sorted points, query tiles and the scatter target pad
+        to the same bucket; padding tiles carry length 0 and padded
+        positions are never referenced by a valid lane), so all batches in
+        the same bucket present the same shapes.  The data side is padded by
+        the snapshot's own pow2 buckets.  ``snapshot`` pins an explicit
+        snapshot (no engine mutation); by default the resident one serves,
+        rebuilt if ``eps`` outgrows it.  Returns ``None`` when either side
+        is empty.
+        """
+        with obs.span(
+            "engine.prepare_query", "plan", nq=int(np.asarray(q_pts).shape[0])
+        ):
+            return self._prepare_query_impl(
+                q_pts, eps, pad_queries_to=pad_queries_to, snapshot=snapshot
+            )
+
+    def _prepare_query_impl(
+        self,
+        q_pts: np.ndarray,
+        eps: Optional[float] = None,
+        *,
+        pad_queries_to: Optional[int] = None,
+        snapshot: Optional[GridSnapshot] = None,
+    ) -> Optional[QueryPlanTables]:
+        eps = self.config.eps if eps is None else float(eps)
+        q_pts = np.ascontiguousarray(np.asarray(q_pts, dtype=np.float32))
+        nq = q_pts.shape[0]
+        if snapshot is None:
+            if nq == 0 or self.num_points == 0:
+                return None
+            self._ensure_index(eps)
+            snapshot = self.snapshot
+        snap = snapshot
+        if nq == 0 or snap.num_points == 0:
+            return None
+        qplan = self.build_query_plan(q_pts, eps, snapshot=snap)
+        cfg = self.config
+        n_slots = nq if pad_queries_to is None else int(pad_queries_to)
+        if n_slots < nq:
+            raise ValueError(
+                f"pad_queries_to={n_slots} smaller than the batch ({nq})"
+            )
+        # cost-model tier dispatch (DESIGN.md #9): the indexed estimate comes
+        # from the grid probe that just ran, the dense estimate from the
+        # batch shape alone.  Both tiers share q_sorted / q_order (the dense
+        # tier only re-tiles the already-sorted rows sequentially).
+        dec = cost_mod.decide(
+            cost_mod.indexed_join_cost(
+                qplan.num_pairs, qplan.num_candidates, cfg.tile_size,
+                snap.n_pad,
+            ),
+            cost_mod.dense_join_cost(
+                nq, snap.num_points, cfg.tile_size, snap.n_pad
+            ),
+            cfg.execution,
+        )
+        t = cfg.tile_size
+        # every cell holds >= 1 point, so num_q_tiles <= nq <= n_slots: one
+        # bucket dimension pads the q-sorted rows AND the q-tile rows
+        qt_rows = n_slots
+        if pad_queries_to is None:
+            qt_rows = qplan.num_q_tiles if dec.execution == "indexed" else -(-nq // t)
+        q_sorted = pad_axis0(qplan.q_sorted, n_slots)
+        if dec.execution == "dense":
+            dt = snap.dense_tables()
+            q_start = (np.arange(qt_rows, dtype=np.int64) * t).astype(np.int32)
+            q_len = np.clip(nq - q_start.astype(np.int64), 0, t).astype(np.int32)
+            nqt = -(-nq // t)  # real (non-empty) query tiles
+            pair_a = np.repeat(np.arange(nqt, dtype=np.int64), dt.plan.num_tiles)
+            pair_d = np.tile(np.arange(dt.plan.num_tiles, dtype=np.int64), nqt)
+            d_tiles, d_len, d_start = dt.tiles, dt.tile_len, dt.tile_start
+            num_candidates = nq * snap.num_points
+        else:
+            q_start = pad_axis0(qplan.q_tile_start, qt_rows)
+            q_len = pad_axis0(qplan.q_tile_len, qt_rows)
+            pair_a = qplan.pair_q.astype(np.int64)
+            pair_d = qplan.pair_d.astype(np.int64)
+            d_tiles, d_len, d_start = snap.tiles, snap.tile_len, snap.tile_start
+            num_candidates = qplan.num_candidates
+        dev = snap.device
+        q_start_t = torch.from_numpy(np.ascontiguousarray(q_start, np.int32)).to(dev)
+        q_len_t = torch.from_numpy(np.ascontiguousarray(q_len, np.int32)).to(dev)
+        q_tiles = ops.make_tiles_device(
+            torch.from_numpy(q_sorted).to(dev), q_start_t, q_len_t,
+            tile_size=cfg.tile_size, dim_block=cfg.dim_block,
+        )
+        tiles = torch.cat([q_tiles, d_tiles])
+        tile_len = torch.cat([q_len_t, d_len])
+        tile_start = torch.cat([q_start_t, d_start + n_slots])
+        # position -> original id: query rows first (pad rows are never
+        # addressed by a valid lane; their fill value is irrelevant), then
+        # the data points' grid-sort permutation, padded to the snapshot's
+        # point_rows bucket so the shape survives snapshot swaps
+        q_order = pad_axis0(qplan.q_order, n_slots)
+        order = torch.cat([
+            torch.from_numpy(q_order.astype(np.int32)).to(dev),
+            snap.point_order_padded,
+        ])
+        pair_b = (pair_d + qt_rows).astype(np.int32)
+        return QueryPlanTables(
+            eps=eps,
+            nq=nq,
+            n_slots=n_slots,
+            qplan=qplan,
+            tiles=tiles,
+            tile_len=tile_len,
+            tile_start=tile_start,
+            order=order,
+            pair_a=pair_a.astype(np.int32),
+            pair_b=pair_b,
+            execution=dec.execution,
+            cost_indexed=dec.cost_indexed,
+            cost_dense=dec.cost_dense,
+            num_candidates=num_candidates,
+        )
+
     # -- queries ----------------------------------------------------------
 
     def _self_tables(self, dec: cost_mod.TierDecision, snap: GridSnapshot):
@@ -432,11 +698,10 @@ class SelfJoinEngine:
             dim_block=cfg.dim_block, shortc=shortc, backend=backend,
             num_dims=snap.num_dims,
         )
-        on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with obs.span(
             "engine.count", "join",
             n=snap.num_points, eps=eps, tier=dec.execution,
-        ), on_card:
+        ), on_card(dev):
             for pa, pb, real in chunks(eng.count_chunk):
                 with obs.span("engine.count.chunk", "dispatch"):
                     step(pa, pb, real)
@@ -450,6 +715,78 @@ class SelfJoinEngine:
         stats.dim_blocks_skipped = int(skipped_tot)
         stats.dim_blocks_total = plan.num_pairs * snap.num_dim_blocks
         obs.mirror_selfjoin_stats(stats, path="engine", mode="count")
+        return SelfJoinResult(counts=counts, stats=stats)
+
+    def count_query(
+        self,
+        q: np.ndarray,
+        eps: Optional[float] = None,
+        snapshot: Optional[GridSnapshot] = None,
+    ) -> SelfJoinResult:
+        """Per-query-point counts of indexed points within eps of each q.
+
+        External query points are binned into this engine's grid, tiled,
+        and each (query tile, adjacent data tile) candidate pair runs
+        through the same count chunk step as the self-join (on the card, one
+        launch of the tier's fused count kernel per chunk) -- index
+        filtering, SHORTC and SORTIDU included.  ``q`` is given in ORIGINAL
+        coordinates; counts come back in ``q``'s row order.  Querying the
+        engine's own dataset equals ``count()``:
+        ``count_query(d).counts == count().counts``.
+        """
+        eps = self.config.eps if eps is None else float(eps)
+        q_pts = np.ascontiguousarray(np.asarray(q, dtype=np.float32))
+        nq = q_pts.shape[0]
+        cfg, eng = self.config, self.engine
+        tab = self.prepare_query(q_pts, eps, snapshot=snapshot)
+        snap = snapshot if snapshot is not None else self.snapshot
+        if tab is None:
+            return SelfJoinResult(
+                counts=np.zeros(nq, np.int64),
+                stats=self._base_stats(eps, snap),
+            )
+        qplan = tab.qplan
+
+        stats = self._base_stats(eps, snap)
+        stats.num_points = nq
+        stats.num_tile_pairs_total = qplan.num_tile_pairs_total
+        stats.num_tile_pairs_evaluated = tab.num_pairs
+        stats.num_candidates = tab.num_candidates
+        stats.num_candidates_dense = nq * snap.num_points
+        stats.num_tiles = int(tab.tiles.shape[0])
+        stats.execution = tab.execution
+        stats.cost_indexed = tab.cost_indexed
+        stats.cost_dense = tab.cost_dense
+        backend = ops.backend_name(tab.execution, cfg.use_pallas)
+        shortc = cfg.shortc and tab.execution == "indexed"
+
+        dev = snap.device
+        # the query slots and the sink row (the scatter drops rows >= n_slots)
+        counts_sorted = torch.zeros(tab.n_slots + 1, dtype=torch.int32, device=dev)
+        skipped_tot = torch.zeros((), dtype=torch.int32, device=dev)
+        step = count_step(
+            counts_sorted, skipped_tot, tab.tiles, tab.tile_len, tab.tile_start, eps,
+            dim_block=cfg.dim_block, shortc=shortc, backend=backend,
+            num_dims=snap.num_dims,
+        )
+        with obs.span(
+            "engine.count_query", "join",
+            nq=nq, eps=eps, tier=tab.execution,
+        ), on_card(dev):
+            for pa, pb, real in tab.chunks(eng.count_chunk):
+                with obs.span("engine.count.chunk", "dispatch"):
+                    step(pa, pb, real)
+                stats.num_chunks += 1
+                stats.num_device_dispatches += 1
+            q_order = torch.from_numpy(qplan.q_order).to(dev)
+            counts = (
+                _unsort_counts(counts_sorted[:nq], q_order)
+                .cpu().numpy().astype(np.int64)
+            )
+        stats.num_results = int(counts.sum())
+        stats.dim_blocks_skipped = int(skipped_tot)
+        stats.dim_blocks_total = tab.num_pairs * snap.num_dim_blocks
+        obs.mirror_selfjoin_stats(stats, path="engine", mode="count_query")
         return SelfJoinResult(counts=counts, stats=stats)
 
     def pairs(
@@ -511,12 +848,11 @@ class SelfJoinEngine:
                 hit_cap=hit_cap, dim_block=cfg.dim_block, backend=backend,
                 chunk=eng.pairs_chunk, num_dims=snap.num_dims,
             )
-            on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
             with obs.span(
                 "engine.pairs", "join",
                 n=snap.num_points, eps=eps, tier=dec.execution,
                 attempt=retries,
-            ), on_card:
+            ), on_card(dev):
                 for pa, pb, real in chunks(eng.pairs_chunk):
                     with obs.span("engine.pairs.chunk", "dispatch"):
                         step(pa, pb, real)

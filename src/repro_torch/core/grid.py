@@ -71,6 +71,36 @@ class GridIndex:
 
 
 @dataclasses.dataclass
+class QueryTilePlan:
+    """Bipartite work list: evaluate q_sorted[Q tile] x pts_sorted[D tile].
+
+    External query points Q are binned into an existing ``GridIndex`` over
+    D, and the candidate set is the 3^k adjacent-cell cross product at tile
+    granularity -- the same index filtering as the self-join, for an
+    arbitrary query set.  ``pair_q`` indexes the query tiling here;
+    ``pair_d`` indexes the data grid's own ``TilePlan`` tiles.
+    """
+
+    tile_size: int
+    q_order: np.ndarray            # (Nq,) int64; q_sorted[i] == Q[q_order[i]]
+    q_sorted: np.ndarray           # (Nq, n) float32, cell- then u-sorted
+    q_tile_start: np.ndarray       # (num_q_tiles,) int32 into q_sorted
+    q_tile_len: np.ndarray         # (num_q_tiles,) int32, 1..tile_size
+    pair_q: np.ndarray             # (P,) int32 query-tile index
+    pair_d: np.ndarray             # (P,) int32 data-tile index (into TilePlan)
+    num_tile_pairs_total: int      # before SORTIDU window pruning
+    num_candidates: int            # sum(q_len * d_len) over evaluated pairs
+
+    @property
+    def num_q_tiles(self) -> int:
+        return int(self.q_tile_start.shape[0])
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.pair_q.shape[0])
+
+
+@dataclasses.dataclass
 class TilePlan:
     """Flat candidate work list: evaluate pts[A tile] x pts[B tile] pairs."""
 
@@ -198,38 +228,10 @@ def adjacent_cell_pairs(grid: GridIndex) -> Tuple[np.ndarray, np.ndarray]:
     For every non-empty cell the 3^k neighbourhood (paper Fig. 1) is probed
     with a vectorized binary search into the sorted non-empty ids -- the same
     ``|D| * 3^k * log2(|G|)`` search structure the paper models in Sec. 5.6,
-    but amortized per *cell* instead of per point.
+    but amortized per *cell* instead of per point.  The self-join case is
+    the bipartite probe applied to the grid's own cells.
     """
-    c = grid.num_cells
-    if c == 0:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    k = grid.k
-    offsets = _neighbor_offsets(k)
-    if not grid.strides.any() and k > 1:  # pragma: no cover - rank-id fallback
-        lookup = {tuple(cc): i for i, cc in enumerate(grid.cell_coords)}
-        out_a, out_b = [], []
-        for i, cc0 in enumerate(grid.cell_coords):
-            for off in offsets:
-                j = lookup.get(tuple(cc0 + off))
-                if j is not None:
-                    out_a.append(i)
-                    out_b.append(j)
-        return np.asarray(out_a, np.int64), np.asarray(out_b, np.int64)
-
-    out_a, out_b = [], []
-    for off in offsets:
-        ncoords = grid.cell_coords + off[None, :]
-        in_bounds = np.all(
-            (ncoords >= 0) & (ncoords < grid.cells_per_dim[None, :]), axis=1
-        )
-        nids = np.where(in_bounds[:, None], ncoords, 0) @ grid.strides
-        pos = np.searchsorted(grid.cell_ids, nids)
-        pos_c = np.minimum(pos, c - 1)
-        found = in_bounds & (grid.cell_ids[pos_c] == nids)
-        src = np.nonzero(found)[0]
-        out_a.append(src)
-        out_b.append(pos_c[src])
-    return np.concatenate(out_a), np.concatenate(out_b)
+    return _probe_query_cells(grid, grid.cell_coords)
 
 
 def split_cells_into_tiles(
@@ -238,7 +240,8 @@ def split_cells_into_tiles(
     """Split each cell's contiguous point run into fixed-size tiles.
 
     Returns ``(tile_start, tile_len, tile_cell, cell_tile_first)`` -- the
-    tiling step of the self-join plan.
+    shared tiling step of the self-join plan (cells of D vs. themselves) and
+    the bipartite query plan (cells of Q vs. cells of D).
     """
     t = int(tile_size)
     counts = cell_count
@@ -343,6 +346,150 @@ def build_tile_plan(
         tile_cell=tile_cell.astype(np.int32),
         pair_a=pair_a.astype(np.int32),
         pair_b=pair_b.astype(np.int32),
+        num_tile_pairs_total=total_pairs,
+        num_candidates=num_candidates,
+    )
+
+
+def _probe_query_cells(
+    grid: GridIndex, qcell_coords: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All (probe cell, adjacent non-empty data cell) index pairs.
+
+    ``qcell_coords`` are in the data grid's coordinate frame (origin
+    subtracted) but may lie outside its bounding box -- such probe cells
+    still find whichever of their 3^k neighbours fall inside.  Probing the
+    grid's own ``cell_coords`` yields the self-join adjacency.
+    """
+    cq = qcell_coords.shape[0]
+    c = grid.num_cells
+    if cq == 0 or c == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    k = grid.k
+    offsets = _neighbor_offsets(k)
+    if not grid.strides.any() and k > 1:  # pragma: no cover - rank-id fallback
+        lookup = {tuple(cc): i for i, cc in enumerate(grid.cell_coords)}
+        out_q, out_d = [], []
+        for i, qc in enumerate(qcell_coords):
+            for off in offsets:
+                j = lookup.get(tuple(qc + off))
+                if j is not None:
+                    out_q.append(i)
+                    out_d.append(j)
+        return np.asarray(out_q, np.int64), np.asarray(out_d, np.int64)
+
+    out_q, out_d = [], []
+    for off in offsets:
+        ncoords = qcell_coords + off[None, :]
+        in_bounds = np.all(
+            (ncoords >= 0) & (ncoords < grid.cells_per_dim[None, :]), axis=1
+        )
+        nids = np.where(in_bounds[:, None], ncoords, 0) @ grid.strides
+        pos = np.searchsorted(grid.cell_ids, nids)
+        pos_c = np.minimum(pos, c - 1)
+        found = in_bounds & (grid.cell_ids[pos_c] == nids)
+        src = np.nonzero(found)[0]
+        out_q.append(src)
+        out_d.append(pos_c[src])
+    return np.concatenate(out_q), np.concatenate(out_d)
+
+
+def build_query_tile_plan(
+    grid: GridIndex,
+    plan: TilePlan,
+    q: np.ndarray,
+    sortidu: bool,
+) -> QueryTilePlan:
+    """Bin query points into ``grid`` and emit the Q-tile x D-tile work list.
+
+    ``q`` must be in the same (reordered) coordinate frame as the points the
+    grid was built over.  Queries are grouped by data-grid cell, u-sorted
+    within each group (so SORTIDU windows apply on both sides), tiled at
+    ``plan.tile_size``, and each (query cell, adjacent non-empty data cell)
+    pair contributes its tile cross product.  Correct for any query radius
+    not exceeding ``grid.eps`` (the candidate set is a superset; the
+    distance filter runs at the queried radius).
+    """
+    q_pts = np.ascontiguousarray(np.asarray(q, dtype=np.float32))
+    nq = q_pts.shape[0]
+    t = int(plan.tile_size)
+    k = grid.k
+    if nq == 0:
+        return QueryTilePlan(
+            tile_size=t,
+            q_order=np.zeros(0, np.int64),
+            q_sorted=np.zeros((0, grid.n), np.float32),
+            q_tile_start=np.zeros(0, np.int32),
+            q_tile_len=np.zeros(0, np.int32),
+            pair_q=np.zeros(0, np.int32),
+            pair_d=np.zeros(0, np.int32),
+            num_tile_pairs_total=0,
+            num_candidates=0,
+        )
+
+    coords = (
+        np.floor(q_pts[:, :k].astype(np.float64) / grid.bin_width).astype(np.int64)
+        - grid.origin[None, :]
+    )
+    # group queries by cell; unique rows handle out-of-box coords robustly
+    qcell_coords, inv = np.unique(coords, axis=0, return_inverse=True)
+    order = np.lexsort((q_pts[:, grid.u_dim], inv))
+    q_sorted = np.ascontiguousarray(q_pts[order])
+    qcell_count = np.bincount(inv, minlength=qcell_coords.shape[0]).astype(np.int64)
+    qcell_start = np.concatenate([[0], np.cumsum(qcell_count)[:-1]])
+
+    q_tile_start, q_tile_len, _, q_cell_tile_first = split_cells_into_tiles(
+        qcell_start, qcell_count, t
+    )
+    n_q_tiles_per_cell = (qcell_count + t - 1) // t
+
+    # data-side tiling parameters, reconstructed to match ``plan``'s layout
+    # (same splitting routine build_tile_plan used, so indices line up)
+    d_counts = grid.cell_count
+    n_d_tiles_per_cell = (d_counts + t - 1) // t if d_counts.size else d_counts
+    _, _, _, d_cell_tile_first = split_cells_into_tiles(
+        grid.cell_start, d_counts, t
+    )
+
+    cq, cd = _probe_query_cells(grid, qcell_coords)
+    pair_q, pair_d = _expand_cell_pairs_to_tile_pairs(
+        cq, cd, n_q_tiles_per_cell, n_d_tiles_per_cell,
+        q_cell_tile_first, d_cell_tile_first,
+    )
+    total_pairs = int(pair_q.size)
+
+    if sortidu and pair_q.size:
+        uq = q_sorted[:, grid.u_dim]
+        uq_lo = uq[q_tile_start]
+        uq_hi = uq[q_tile_start + q_tile_len - 1]
+        ud = grid.pts_sorted[:, grid.u_dim]
+        ud_lo = ud[plan.tile_start[pair_d]]
+        ud_hi = ud[plan.tile_start[pair_d] + plan.tile_len[pair_d] - 1]
+        gap_lo = ud_lo - uq_hi[pair_q]         # d entirely above q
+        gap_hi = uq_lo[pair_q] - ud_hi         # q entirely above d
+        keep = np.maximum(gap_lo, gap_hi) <= np.float32(grid.eps)
+        pair_q, pair_d = pair_q[keep], pair_d[keep]
+
+    if pair_q.size:
+        # group by Q tile, as build_tile_plan groups by A tile (the fused
+        # count step stages each run of one A tile once)
+        srt = np.lexsort((pair_d, pair_q))
+        pair_q, pair_d = pair_q[srt], pair_d[srt]
+
+    num_candidates = (
+        int((q_tile_len[pair_q] * plan.tile_len[pair_d].astype(np.int64)).sum())
+        if pair_q.size
+        else 0
+    )
+
+    return QueryTilePlan(
+        tile_size=t,
+        q_order=order.astype(np.int64),
+        q_sorted=q_sorted,
+        q_tile_start=q_tile_start.astype(np.int32),
+        q_tile_len=q_tile_len.astype(np.int32),
+        pair_q=pair_q.astype(np.int32),
+        pair_d=pair_d.astype(np.int32),
         num_tile_pairs_total=total_pairs,
         num_candidates=num_candidates,
     )

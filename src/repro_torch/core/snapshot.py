@@ -6,11 +6,15 @@ grid, the tile plan, the device tile tables and the lazy dense-tier tables
 -- on one ``torch.device``.  ``SelfJoinEngine`` holds only configuration,
 so swapping a new snapshot behind an engine is one reference assignment.
 
-Shape buckets: the device tile table (``tile_rows``) and the dense tile
-table (``dense_rows``) are padded to power-of-two row buckets
-(``grid.bucket_rows``), and ``rebuilt`` carries the old buckets forward as
-floors, exactly as in the JAX package.  Padding tile rows carry
-``tile_len == 0`` and are never referenced by a candidate pair list.
+Shape buckets: the device tile table (``tile_rows``), the combined
+bipartite order's data segment (``point_rows``) and the dense tile table
+(``dense_rows``) are padded to power-of-two row buckets
+(``grid.bucket_rows``), and ``rebuilt`` and the mutable index's ``compact``
+carry the old buckets forward as floors, exactly as in the JAX package, so
+a rebuild whose data still fits the old buckets presents the same table
+shapes to the serving tier (no new workspace, ``ServiceStats.num_traces``
+stays 0).  Padding tile rows carry ``tile_len == 0`` and are never
+referenced by a candidate pair list.
 
 ``snapshot_from_numpy`` carries a snapshot across packages: it takes the
 JAX package's ``GridSnapshot`` arrays as numpy and places them on a device.
@@ -124,9 +128,9 @@ class GridSnapshot:
 
     __slots__ = (
         "config", "device", "pts", "perm", "work", "index_eps", "grid", "plan",
-        "num_points", "num_dims", "tile_rows", "dense_rows",
-        "tiles", "tile_len", "tile_start", "point_order", "_dense",
-        "_chunk_cache",
+        "num_points", "num_dims", "tile_rows", "point_rows", "dense_rows",
+        "tiles", "tile_len", "tile_start", "point_order",
+        "point_order_padded", "_dense", "_chunk_cache",
     )
 
     def __init__(
@@ -141,6 +145,7 @@ class GridSnapshot:
         *,
         device,
         min_tile_rows: int = 1,
+        min_point_rows: int = 1,
         min_dense_rows: int = 1,
     ):
         self.config = config
@@ -154,6 +159,7 @@ class GridSnapshot:
         self.num_points, self.num_dims = pts.shape
         n_tiles = plan.num_tiles if plan is not None else 0
         self.tile_rows = bucket_rows(n_tiles, min_tile_rows)
+        self.point_rows = bucket_rows(self.num_points, min_point_rows)
         self.dense_rows = bucket_rows(
             -(-self.num_points // config.tile_size), min_dense_rows
         )
@@ -162,8 +168,13 @@ class GridSnapshot:
         if grid is not None:
             self.tile_start = self._int32(pad_axis0(plan.tile_start, self.tile_rows))
             self.tile_len = self._int32(pad_axis0(plan.tile_len, self.tile_rows))
-            # the grid-sort permutation (position -> original id), N rows
+            # the grid-sort permutation (position -> original id) at its real
+            # length (count scatters and _unsort_counts address exactly N rows) ...
             self.point_order = self._int32(grid.point_order)
+            # ... and padded to the bucket for the combined bipartite order,
+            # so the (query | data) order keeps one shape per bucket across
+            # snapshot swaps (pad rows are never decoded)
+            self.point_order_padded = self._int32(pad_axis0(grid.point_order, self.point_rows))
             self.tiles = ops.make_tiles_device(
                 torch.from_numpy(grid.pts_sorted).to(self.device),
                 self.tile_start,
@@ -176,6 +187,7 @@ class GridSnapshot:
             self.tile_len = None
             self.tile_start = None
             self.point_order = None
+            self.point_order_padded = None
 
     def _int32(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
@@ -192,9 +204,15 @@ class GridSnapshot:
         perm=_AUTO_PERM,
         device="cuda",
         min_tile_rows: int = 1,
+        min_point_rows: int = 1,
         min_dense_rows: int = 1,
     ) -> "GridSnapshot":
-        """Full index build: REORDER (unless ``perm`` is given), grid, plan."""
+        """Full index build: REORDER (unless ``perm`` is given), grid, plan.
+
+        An explicit ``perm`` (or ``None``) reuses a previous snapshot's frame
+        -- ``compact`` does this so the rebuilt index bins points identically
+        to the one it replaces.
+        """
         dev = resolve_device(device)  # before any host work
         pts = np.ascontiguousarray(np.asarray(d, dtype=np.float32))
         eps = config.eps if eps is None else float(eps)
@@ -215,6 +233,7 @@ class GridSnapshot:
             config, pts, perm, work, index_eps, grid, plan,
             device=dev,
             min_tile_rows=min_tile_rows,
+            min_point_rows=min_point_rows,
             min_dense_rows=min_dense_rows,
         )
 
@@ -229,12 +248,27 @@ class GridSnapshot:
         config: SelfJoinConfig,
         *,
         device="cuda",
+        min_tile_rows: int = 1,
+        min_point_rows: int = 1,
+        min_dense_rows: int = 1,
     ) -> "GridSnapshot":
-        """Snapshot over already-built arrays: only device placement runs."""
+        """Snapshot over already-built arrays: only device placement runs.
+
+        The persistence re-entry path (``SimilarityIndex.load`` via
+        ``SelfJoinEngine.from_prebuilt``): a restarted server re-places the
+        saved (perm, grid, plan) triple and serves as the process that saved
+        it did.
+        """
         pts = np.ascontiguousarray(np.asarray(pts, dtype=np.float32))
         perm = None if perm is None else np.asarray(perm)
         work = pts if perm is None else apply_reorder(pts, perm)
-        return cls(config, pts, perm, work, index_eps, grid, plan, device=device)
+        return cls(
+            config, pts, perm, work, index_eps, grid, plan,
+            device=device,
+            min_tile_rows=min_tile_rows,
+            min_point_rows=min_point_rows,
+            min_dense_rows=min_dense_rows,
+        )
 
     def rebuilt(self, eps: float) -> "GridSnapshot":
         """Same points, same permutation, new grid at ``eps``, buckets floored."""
@@ -243,6 +277,7 @@ class GridSnapshot:
             perm=self.perm,
             device=self.device,
             min_tile_rows=self.tile_rows,
+            min_point_rows=self.point_rows,
             min_dense_rows=self.dense_rows,
         )
 
@@ -257,6 +292,14 @@ class GridSnapshot:
     @property
     def num_dim_blocks(self) -> int:
         return self.tiles.shape[2] // self.config.dim_block
+
+    @property
+    def data_bounds(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-dimension (min, max) of the snapshot points, reordered frame."""
+        if self.grid is not None:
+            return self.grid.data_bounds
+        z = np.zeros(self.num_dims, np.float64)
+        return z, z
 
     def chunks(self, chunk: int) -> List[Chunk]:
         """Padded device chunks of the self-join candidate pair list."""

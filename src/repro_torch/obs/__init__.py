@@ -8,7 +8,7 @@ seams as the reference engine, so ``capture()`` windows read alike:
     from repro_torch import obs
 
     with obs.capture() as cap:
-        engine.pairs()
+        engine.pairs()                  # or a stream of service requests
     assert cap.span_count(cat="dispatch") == result.stats.num_device_dispatches
 
 Mirroring and recording only happen while tracing is enabled (normally via
@@ -17,6 +17,8 @@ Mirroring and recording only happen while tracing is enabled (normally via
 
 from __future__ import annotations
 
+import json as _json
+import logging as _logging
 from typing import Dict, List, Optional
 
 from repro_torch.obs import trace as _trace_mod
@@ -54,18 +56,46 @@ __all__ = [
     "event",
     "to_chrome_trace",
     "write_chrome_trace",
+    "inc",
+    "observe",
+    "set_gauge",
     "mirror_selfjoin_stats",
+    "mirror_service_stats",
+    "request_log",
     "Capture",
     "capture",
 ]
+
+_LOG = _logging.getLogger("repro_torch.obs")
+
+
+# -- registry convenience (all gated on the tracer switch) -------------------
+
+def inc(name: str, value: float = 1.0, **labels) -> None:
+    """Increment a counter in the default registry (no-op when disabled)."""
+    if _trace_mod._state.enabled:
+        REGISTRY.counter(name).inc(value, **labels)
+
+
+def observe(name: str, value: float, **labels) -> None:
+    """Record a histogram observation (no-op when disabled)."""
+    if _trace_mod._state.enabled:
+        REGISTRY.histogram(name).observe(value, **labels)
+
+
+def set_gauge(name: str, value: float, **labels) -> None:
+    """Set a gauge (no-op when disabled)."""
+    if _trace_mod._state.enabled:
+        REGISTRY.gauge(name).set(value, **labels)
 
 
 def mirror_selfjoin_stats(stats, *, path: str, mode: str) -> None:
     """Mirror a completed join's ``SelfJoinStats`` into the registry.
 
     ``path`` names the execution path ("engine"), ``mode`` the result shape
-    ("count", "pairs").  The tier label is the tier that actually ran.
-    Counts mirror 1:1, with the same metric names as the JAX package.
+    ("count", "pairs", "count_query").  The tier label is the tier that
+    actually ran.  Counts mirror 1:1, with the same metric names as the JAX
+    package.
     """
     if not _trace_mod._state.enabled:
         return
@@ -86,6 +116,66 @@ def mirror_selfjoin_stats(stats, *, path: str, mode: str) -> None:
     c("selfjoin_overflow_retries_total", "pairs-buffer regrow retries").inc(
         stats.overflow_retries, **labels
     )
+
+
+def mirror_service_stats(stats, *, kind: str) -> None:
+    """Mirror one request's ``ServiceStats`` into the registry.
+
+    ``kind`` is the request type ("range_count", "range_pairs", "knn").
+    Gauges track the churn state the request observed (epoch, delta size,
+    tombstones); counters mirror the per-request work counters.
+    """
+    if not _trace_mod._state.enabled:
+        return
+    tier = stats.execution or "indexed"
+    labels = dict(kind=kind, tier=tier)
+    c = REGISTRY.counter
+    c("service_requests_total", "requests served").inc(stats.num_requests, **labels)
+    c("service_queries_total", "query rows served").inc(stats.num_queries, **labels)
+    c("service_traces_total", "new chunk-program traces caused").inc(
+        stats.num_traces, **labels
+    )
+    c("service_dispatches_total", "chunk-program launches").inc(
+        stats.num_device_dispatches, **labels
+    )
+    c("service_results_total", "neighbours counted / pairs returned").inc(
+        stats.num_results, **labels
+    )
+    c("service_eps_rounds_total", "eps-expansion passes").inc(
+        stats.eps_rounds, **labels
+    )
+    c("service_index_rebuilds_total", "over-radius temporary snapshots").inc(
+        stats.index_rebuilds, **labels
+    )
+    g = REGISTRY.gauge
+    g("service_epoch", "compaction epoch last pinned").set(stats.epoch)
+    g("service_delta_size", "delta-buffer points at last request").set(stats.delta_size)
+    g("service_tombstones", "tombstoned points at last request").set(
+        stats.tombstone_count
+    )
+    REGISTRY.histogram("service_request_queries", "query rows per request").observe(
+        stats.num_queries, kind=kind
+    )
+
+
+def request_log(kind: str, stats) -> None:
+    """Per-request structured log record: instant trace event + debug log."""
+    fields = {
+        "kind": kind,
+        "nq": stats.num_queries,
+        "bucket": stats.bucket,
+        "eps": round(float(stats.eps), 6),
+        "eps_rounds": stats.eps_rounds,
+        "traces": stats.num_traces,
+        "dispatches": stats.num_device_dispatches,
+        "results": stats.num_results,
+        "tier": stats.execution,
+        "epoch": stats.epoch,
+    }
+    if _trace_mod._state.enabled:
+        event("service.request", "log", **fields)
+    if _LOG.isEnabledFor(_logging.DEBUG):
+        _LOG.debug("request %s", _json.dumps(fields, sort_keys=True))
 
 
 class Capture:

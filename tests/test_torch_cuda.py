@@ -16,13 +16,19 @@ K3 / K4's earlier kernel over ``chip_smoke.DENSE_CASES``; the end-to-end
 tests hold the engine on the card against the same engine on the CPU (the
 pair arrays row for row), and check that its steps launch the fused
 kernels once per count chunk (twice per pairs chunk) and nothing else but
-the result-size estimate's per-pair kernel.  Flash attention compares within 2e-5 in f32 and
+the result-size estimate's per-pair kernel; the serving tests hold
+``QueryService`` over a card index against the same service over a CPU
+index on one request stream with churn (answers and ``ServiceStats``,
+``num_traces`` included), and check that its chunk loops launch only the
+fused steps; the churn aux pass at a 262,144-row table stays within a few
+blocks of card memory.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
 widths that are multiples of 8: the tensor-core kernel; the rest: the
 CUDA-core kernel).
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -30,7 +36,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engine
+from repro_torch.join import QueryService, SimilarityIndex
 from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -291,6 +299,99 @@ def test_engine_dense_launches_only_the_fused_kernels(cuda, n, dim_block):
     np.testing.assert_array_equal(got.pairs, want.pairs)
     np.testing.assert_array_equal(got.counts, want.counts)
     assert got.stats == want.stats
+
+
+SERVICE_STEPS = {"indexed": ("tile_pair_count_scatter", "tile_pair_pairs_compact"),
+                 "dense": ("dense_count_scatter", "dense_pairs_compact")}
+
+
+@pytest.mark.parametrize("mode", ["indexed", "dense"])
+@pytest.mark.parametrize("n,dims,eps,tile_size,dim_block", [
+    (500, 16, 0.3, 16, 8), (1200, 16, 0.35, 64, 32), (400, 40, 0.7, 32, 16)])
+def test_service_on_the_card_equals_the_cpu(cuda, mode, n, dims, eps, tile_size, dim_block):
+    """One request stream -- range counts in two buckets, range pairs, kNN
+    (growing past the build radius), inserts, deletes, a compaction -- to a
+    service over a card index and one over a CPU index: equal answers and
+    ``ServiceStats`` (``num_traces`` included) request for request; on the
+    card the chunk loops launch the tier's fused count kernel once per count
+    chunk and its fused pairs kernel twice per pairs chunk, nothing else.
+    ``count_query`` on the card equals the CPU's too."""
+    rng = np.random.default_rng(n + dims)
+    centers = rng.random((12, dims))
+    d = centers[rng.integers(0, 12, n)] + rng.normal(0, 0.05, (n, dims))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, k=4, tile_size=tile_size, dim_block=dim_block, execution=mode)
+    eng = EngineConfig(count_chunk=64, pairs_chunk=16)
+    card = QueryService(SimilarityIndex(d[:-40], cfg, eng, device=cuda))
+    host = QueryService(SimilarityIndex(d[:-40], cfg, eng, device="cpu"))
+    q = np.concatenate([d[:30], (np.round(rng.random((20, dims)) * 64) / 64).astype(np.float32)])
+
+    chunks = {"service.count.chunk": 0, "service.pairs.chunk": 0}  # the card service's chunk loops
+
+    def both(kind, *args):
+        with obs.capture() as cap:
+            got = getattr(card, kind)(*args)
+        for name in chunks:
+            chunks[name] += cap.span_count(name, "dispatch")
+        want = getattr(host, kind)(*args)
+        for name in ("counts", "pairs", "indices", "distances"):
+            if hasattr(want, name):
+                np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+        assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+        return got
+
+    before = _launches()
+    both("range_count", q, eps)
+    both("range_count", q[:9], eps / 2)
+    assert both("range_pairs", q, eps).pairs.shape[0] > len(q)
+    both("knn", q, 5)
+    for index in (card.index, host.index):
+        index.insert(d[-40:])
+        index.delete(np.arange(0, 60, 4))
+    both("range_count", q, eps)
+    both("range_pairs", q, eps)
+    both("knn", q[:7], 3)
+    card.index.compact()
+    host.index.compact()
+    both("range_count", q, eps)
+    both("range_pairs", q, eps)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    count_kernel, pairs_kernel = SERVICE_STEPS[mode]
+    assert grew == {k: chunks["service.count.chunk"] if k == count_kernel
+                    else 2 * chunks["service.pairs.chunk"] if k == pairs_kernel else 0 for k in grew}
+    assert grew[count_kernel] > 0 and grew[pairs_kernel] > 0
+    assert dataclasses.asdict(card.total) == dataclasses.asdict(host.total)
+    assert card.total.execution == mode and card.total.num_traces > 0
+    # the engine's own bipartite entry over the same combined tables
+    got, want = card.index.engine.count_query(q, eps), host.index.engine.count_query(q, eps)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.stats == want.stats
+
+
+def test_aux_pass_at_a_large_table_stays_bounded(cuda):
+    """The churn aux pass at a 1024-query bucket against 262,144 aux rows of
+    16 dims (a churned index without auto-compaction): its temporaries stay
+    within a few (bucket, block) arrays, not the (bucket, rows, dims)
+    difference tensor of 17 GB, and its columns equal the CPU's."""
+    from repro_torch.join.service import _AUX_BLOCK, aux_membership
+
+    rng = np.random.default_rng(7)
+    q = rng.random((1024, 16), dtype=np.float32)
+    pts = rng.random((1 << 18, 16), dtype=np.float32)
+    real, eps = (1 << 18) - 1000, 1.5
+    qd, pd = torch.from_numpy(q).to(cuda), torch.from_numpy(pts).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = aux_membership(qd, pd, real, eps)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base - got.numel() <= 4 * _AUX_BLOCK * 4
+    assert got.shape == (1024, 1 << 18) and not got[:, real:].any()
+    cols = np.r_[0:4096, real - 4096:real]
+    want = aux_membership(torch.from_numpy(q), torch.from_numpy(pts[cols]), cols.size, eps)
+    assert want.any() and not want.all()
+    np.testing.assert_array_equal(got[:, torch.from_numpy(cols).to(cuda)].cpu().numpy(), want.numpy())
 
 
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
