@@ -94,7 +94,24 @@ Phases, each printing one JSON line:
    trace, and across a save / load; phase 4's dense engine as an
    index, whose requests launch only the dense fused steps.  Its line
    holds the stream's request p50 / p99 and queries/s, each request split
-   by the service's spans, and the phase's peak device memory.
+   by the service's spans, and the phase's peak device memory;
+8. distributed -- the distributed tier (``DistributedSelfJoinEngine``,
+   host-driven: DIST_WORKERS workers simulated one after another in this
+   process) on phase 3-4's arrays, with its own launch counters: Syn16D2M
+   uncut at 4 workers, round robin, ``count()``, whose counts must equal
+   phase 3's up to the eps boundary band (each shard runs its own REORDER)
+   and which must launch only K1's fused count step, once per chunk; its
+   time split per ring round into the blocks' host plans and chunk loops.
+   CoocTexture: at 1 worker counts equal to phase 4's indexed count(); at 4
+   workers round robin and dynamic counts equal to each other and to phase
+   4's up to the band, ``self_join_pairs`` (row sums equal the counts, the
+   pair set phase 4's up to the band; K1's fused count step once per count
+   chunk and K2's fused pairs step twice per pairs chunk, nothing else),
+   kNN (k=16) of every point against the float64 top-k on 512 sampled rows,
+   and a dense-tier count that launches only the dense fused count step.
+   Then the ring transport (``ring_self_join_counts``) on a one-rank NCCL
+   group the phase creates and destroys, counts equal to phase 4's up to
+   the band.  Multi-GPU stays unverified (one card).
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -104,8 +121,8 @@ back-to-back calls of a millisecond or more, with the profiler's reading
 of the kernel beside them; each row of the kernels line names its timing.
 Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
-and after phase 7 (``serving_launches``), and K5's just before and after its two full-width
-calls; a kernel that its path never launched fails the run.  The line before the last lists
+and after phase 7 (``serving_launches``) and phase 8 (``distributed_launches``), and K5's just
+before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
 imports nothing of the JAX package.
@@ -1503,7 +1520,7 @@ def phase_attention(torch, np, fa):
     return rec
 
 
-def attention_row(attn, serving):
+def attention_row(attn, serving, distributed):
     """K5's entry of the kernels line: per call, the mean over its path's
     calls (one per full-width shape; each shape's numbers are in the
     attention line), and the largest error over them."""
@@ -1526,6 +1543,7 @@ def attention_row(attn, serving):
         "path": "phase 5: flash_attention's own entry point, one call per full-width shape "
                 "(phases 3-4 never call it); times are per call, the mean over those calls",
         "serving_launches": serving["flash_attention_wgmma"],  # phase 7 checks it is 0
+        "distributed_launches": distributed["flash_attention_wgmma"],  # phase 8 checks it is 0
     }
 
 
@@ -1669,7 +1687,7 @@ def phase_pairs(torch, np, engine, d, dense_engine, dense_host_s):
         "dense_vs_indexed_boundary_diffs": int(diff.size),
     }
     emit(rec)
-    return rec
+    return rec, rc.counts, rp.pairs
 
 
 def phase_wide_dense(torch, np, SelfJoinConfig, SelfJoinEngine, paper_dataset):
@@ -2093,6 +2111,258 @@ def phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_eng
     return serving_launches
 
 
+# -- the distributed phase -----------------------------------------------------
+
+DIST_WORKERS = 4            # the ring's positions (simulated workers, one card)
+DIST_KNN_K = 16             # CoocTexture kNN over every point
+DIST_KNN_EPS0 = 0.061       # on CoocTexture the expansion then takes 2 rounds, ending at 0.122 where
+                            # every point has 16 candidates (~106M candidate pairs in the last pass)
+DIST_KNN_SAMPLE = 512       # rows of the kNN held against the float64 top-k
+
+
+def ring_rounds(cap):
+    """Each ``ring.round`` of an obs capture split by the engine's spans:
+    its wall time, the host plans of its blocks (``engine.prepare_query``:
+    the query plan, the combined tables) and their chunk loops
+    (``engine.count_query``: the launches and the read of the counts)."""
+    spans = sorted((e for e in cap.events if e.ph == "X"), key=lambda e: e.ts_us)
+    out = []
+    for r in cap.spans("ring.round", "ring"):
+        end = r.ts_us + r.dur_us
+
+        def total(name):
+            return sum(e.dur_us for e in spans if e.name == name and r.ts_us <= e.ts_us
+                       and e.ts_us + e.dur_us <= end) / 1e6
+
+        out.append({"round": r.attrs["round"], "wall_s": r.dur_us / 1e6,
+                    "host_plan_s": total("engine.prepare_query"), "count_loop_s": total("engine.count_query")})
+    return out
+
+
+def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, seed):
+    """The distributed tier (``DistributedSelfJoinEngine``, host-driven,
+    DIST_WORKERS simulated workers in this process) and the ring transport
+    (``ring_self_join_counts`` on a one-rank NCCL group), on phase 3-4's
+    arrays, with the launch counters from 0.
+
+    Syn16D2M uncut, round robin, ``count()``: counts equal phase 3's up to
+    the boundary band (each shard runs its own REORDER); only K1's fused
+    count step launches, once per chunk.  CoocTexture: at 1 worker counts
+    ``==`` phase 4's indexed count(); at DIST_WORKERS workers under both
+    assignments counts equal each other and phase 4's up to the band;
+    ``self_join_pairs`` (row sums equal the counts, the pair set phase 4's
+    up to the band; K1's fused count step once per count chunk, K2's fused
+    pairs step twice per pairs chunk); kNN of every point from
+    DIST_KNN_EPS0, DIST_KNN_SAMPLE rows against the float64 top-k; a
+    dense-tier count (only the dense fused count step).  Returns the
+    phase's launches per kernel."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.core import DistributedSelfJoinEngine, SelfJoinConfig
+    from repro_torch.core.distributed import ring_self_join_counts
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+
+    mods = (distance_tile, dense_tile, flash_attention)
+
+    def read():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+    def only(grew, want, what):
+        check(grew == {k: want.get(k, 0) for k in grew},
+              f"{what} launched {({k: v for k, v in grew.items() if v})}, expected {want}")
+
+    def band(pts, rows, eps, *counts):
+        """Counts of ``rows`` that differ must lie within the float64 bounds."""
+        if rows.size:
+            lo, hi = count_bounds(torch, pts, rows, eps)
+            for got in counts:
+                check(bool(((got[rows] >= lo) & (got[rows] <= hi)).all()),
+                      f"counts differ beyond the eps boundary at eps={eps}")
+        return int(rows.size)
+
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rec = {"phase": "distributed", "workers": DIST_WORKERS,
+           "multi_gpu": "unverified: one card; the engine's workers run one after another in one process, "
+                        "and the ring transport ran on a one-rank NCCL group (no point-to-point op)"}
+
+    # Syn16D2M, uncut, round robin
+    t0 = time.perf_counter()
+    de = DistributedSelfJoinEngine(syn, SelfJoinConfig(eps=SYN_EPS), num_workers=DIST_WORKERS)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = read()
+    with obs.capture(capacity=1 << 21) as cap:
+        t0 = time.perf_counter()
+        res = de.count()
+        count_s = time.perf_counter() - t0
+    st = res.stats
+    grew = launched_since(before, *mods)
+    only(grew, {SCATTER[0]: st.num_chunks}, f"the Syn16D2M distributed count ({st.num_chunks} chunks)")
+    check(cap.dropped == 0, f"the obs capture dropped {cap.dropped} events")
+    peak = torch.cuda.max_memory_allocated()
+    check(res.counts.shape == syn_counts.shape and (res.counts >= 1).all(), "Syn16D2M distributed counts malformed")
+    syn_pts = torch.from_numpy(syn).cuda()
+    diffs = band(syn_pts, np.nonzero(res.counts != syn_counts)[0], SYN_EPS, res.counts, syn_counts)
+    del syn_pts
+    t0 = time.perf_counter()
+    loads = de.worker_loads()
+    loads_s = time.perf_counter() - t0
+    rounds = ring_rounds(cap)
+    rec["syn16d2m"] = {
+        "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": None, "assignment": de.assignment,
+        "shard_build_s": build_s, "count_s": count_s,
+        "host_plan_s": sum(r["host_plan_s"] for r in rounds), "count_loop_s": sum(r["count_loop_s"] for r in rounds),
+        "rounds": rounds, "chunks": st.num_chunks, "tile_pairs": st.num_tile_pairs_evaluated,
+        "candidates": st.num_candidates, "candidates_dense": st.num_candidates_dense,
+        "candidate_filter_ratio": st.candidate_filter_ratio, "comm_elements": st.comm_elements,
+        "results": st.num_results, "worker_loads": loads.tolist(), "worker_loads_s": loads_s,
+        "diffs_vs_phase3": diffs, "peak_device_bytes": peak, "launches": {k: v for k, v in grew.items() if v},
+    }
+    del de, res
+    torch.cuda.empty_cache()
+
+    # CoocTexture: 1 worker, then DIST_WORKERS under both assignments
+    n = cooc.shape[0]
+    cpts = torch.from_numpy(cooc).cuda()
+    cfg = SelfJoinConfig(eps=COOC_EPS)
+    r1 = DistributedSelfJoinEngine(cooc, cfg, num_workers=1).count()
+    check(np.array_equal(r1.counts, cooc_counts), "CoocTexture at 1 worker: counts != phase 4's indexed count()")
+    engines, counts = {}, {}
+    out = {"points": int(n), "eps": COOC_EPS, "one_worker_chunks": r1.stats.num_chunks}
+    for assignment in ("round_robin", "dynamic"):
+        t0 = time.perf_counter()
+        engines[assignment] = DistributedSelfJoinEngine(cooc, cfg, num_workers=DIST_WORKERS, assignment=assignment)
+        build_s = time.perf_counter() - t0
+        before = read()
+        t0 = time.perf_counter()
+        r = engines[assignment].count()
+        count_s = time.perf_counter() - t0
+        only(launched_since(before, *mods), {SCATTER[0]: r.stats.num_chunks}, f"the CoocTexture {assignment} count")
+        counts[assignment] = r.counts
+        out[assignment] = {"build_s": build_s, "count_s": count_s, "chunks": r.stats.num_chunks,
+                           "candidates": r.stats.num_candidates,
+                           "worker_loads": engines[assignment].worker_loads().tolist()}
+    check(np.array_equal(counts["round_robin"], counts["dynamic"]),
+          "CoocTexture: round-robin and dynamic counts differ")
+    out["diffs_vs_phase4"] = band(cpts, np.nonzero(counts["round_robin"] != cooc_counts)[0], COOC_EPS,
+                                  counts["round_robin"], cooc_counts)
+
+    # pairs at DIST_WORKERS workers (round robin)
+    de = engines["round_robin"]
+    before = read()
+    with obs.capture(capacity=1 << 20) as pcap:
+        t0 = time.perf_counter()
+        rp = de.self_join_pairs()
+        pairs_s = time.perf_counter() - t0
+    n_count = pcap.span_count("ring.block.count.chunk", "dispatch")
+    n_pairs = pcap.span_count("ring.block.pairs.chunk", "dispatch")
+    only(launched_since(before, *mods), {SCATTER[0]: n_count, PAIRS[0]: 2 * n_pairs},
+         f"the CoocTexture pairs ({n_count} count, {n_pairs} pairs chunks)")
+    check(n_pairs == rp.stats.num_chunks and n_count + n_pairs == rp.stats.num_device_dispatches,
+          "the pairs' chunk spans disagree with its stats")
+    check(np.array_equal(rp.counts, counts["round_robin"])
+          and np.array_equal(np.bincount(rp.pairs[:, 0], minlength=n), counts["round_robin"]),
+          "CoocTexture distributed pairs: row sums != count()")
+    got = torch.from_numpy(rp.pairs).cuda().long()
+    want = torch.from_numpy(cooc_pairs).cuda().long()
+    got_key, want_key = got[:, 0] * n + got[:, 1], want[:, 0] * n + want[:, 1]
+    check(int(torch.unique(got_key).numel()) == got_key.numel(), "CoocTexture distributed pairs: duplicates")
+    odd = torch.cat([got[~torch.isin(got_key, want_key)], want[~torch.isin(want_key, got_key)]])
+    if odd.shape[0]:
+        d2, bw = boundary_band(cpts[odd[:, 0]][:, None, :], cpts[odd[:, 1]][:, None, :])
+        check(bool(((d2 - COOC_EPS ** 2).abs() <= bw).all()),
+              "CoocTexture distributed pairs differ from phase 4's beyond the eps boundary")
+    del got, want, got_key, want_key
+    out["pairs"] = {"pairs": int(rp.pairs.shape[0]), "wall_s": pairs_s, "count_chunks": n_count,
+                    "pairs_chunks": n_pairs, "diffs_vs_phase4": int(odd.shape[0])}
+    del rp, odd
+
+    # kNN of every point
+    before = read()
+    with obs.capture(capacity=1 << 20) as kcap:
+        t0 = time.perf_counter()
+        kn = de.knn(DIST_KNN_K, eps0=DIST_KNN_EPS0)
+        knn_s = time.perf_counter() - t0
+    passes_s = sum(e.dur_us for e in kcap.spans("ring.round", "ring")) / 1e6
+    plans_s = sum(e.dur_us for e in kcap.spans("engine.prepare_query")) / 1e6
+    grew = launched_since(before, *mods)
+    check(set(k for k, v in grew.items() if v) == {SCATTER[0], PAIRS[0]}, f"CoocTexture distributed kNN launched {grew}")
+    check(kn.eps_rounds <= 3 and kn.indices.shape == (n, DIST_KNN_K) and (kn.indices >= 0).all(),
+          f"CoocTexture distributed kNN: {kn.eps_rounds} rounds, indices {kn.indices.shape}")
+    rows = rng.choice(n, size=DIST_KNN_SAMPLE, replace=False)
+    want_rows, want_dist = brute_topk(torch, cpts, cpts[torch.from_numpy(rows).cuda()], DIST_KNN_K)
+    got_rows, got_dist = kn.indices[rows], kn.distances[rows]
+    bad = np.nonzero((got_rows != want_rows).any(axis=1))[0]
+    for i in bad:  # allowed only where the final radius cut a neighbour at the eps boundary
+        miss = np.setdiff1d(want_rows[i], got_rows[i])
+        d2, bw = boundary_band(cpts[int(rows[i]):int(rows[i]) + 1], cpts[torch.from_numpy(miss).cuda()])
+        check(bool(((d2 - kn.eps_used ** 2).abs() <= bw).all()),
+              f"CoocTexture distributed kNN: row {rows[i]} misses {miss.tolist()} away from the eps boundary")
+    ok = np.setdiff1d(np.arange(rows.size), bad)
+    ulps = ulps_apart(np, got_dist[ok], want_dist[ok])
+    check(ulps <= 2, f"CoocTexture distributed kNN distances {ulps} float64 ulps off the brute force")
+    out["knn"] = {"k": DIST_KNN_K, "eps0": DIST_KNN_EPS0, "eps_used": kn.eps_used, "eps_rounds": kn.eps_rounds,
+                  "final_pairs": kn.stats.num_results, "wall_s": knn_s,
+                  # the candidate passes' host plans, the rest of their blocks (count and pairs
+                  # loops, the copies and decode of the pairs), and what follows the passes (top-k)
+                  "split_s": {"host_plans": plans_s, "blocks_rest": passes_s - plans_s,
+                              "after_passes": knn_s - passes_s},
+                  "sampled": DIST_KNN_SAMPLE,
+                  "rows_off_at_boundary": int(bad.size), "max_distance_ulps": ulps,
+                  "launches": {k: v for k, v in grew.items() if v}}
+    del kn, engines, de
+
+    # the dense tier
+    t0 = time.perf_counter()
+    dd = DistributedSelfJoinEngine(cooc, dataclasses.replace(cfg, execution="dense"), num_workers=DIST_WORKERS)
+    build_s = time.perf_counter() - t0
+    before = read()
+    t0 = time.perf_counter()
+    rd = dd.count()
+    dense_s = time.perf_counter() - t0
+    only(launched_since(before, *mods), {"dense_count_scatter": rd.stats.num_chunks}, "the CoocTexture dense count")
+    out["dense"] = {"build_s": build_s, "count_s": dense_s, "chunks": rd.stats.num_chunks,
+                    "diffs_vs_phase4": band(cpts, np.nonzero(rd.counts != cooc_counts)[0], COOC_EPS,
+                                            rd.counts, cooc_counts)}
+    del dd
+    rec["cooc"] = out
+
+    # the ring transport: a one-rank NCCL group this phase creates and destroys
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        before = read()
+        t0 = time.perf_counter()
+        rc = ring_self_join_counts(cooc, COOC_EPS, dist.group.WORLD, device="cuda")
+        ring_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+    only(launched_since(before, *mods), {}, "the ring transport (torch matmuls only)")
+    rec["ring"] = {"backend": "nccl", "ranks": 1, "wall_s": ring_s,
+                   "diffs_vs_phase4": band(cpts, np.nonzero(rc != cooc_counts)[0], COOC_EPS, rc, cooc_counts)}
+    del cpts
+    torch.cuda.synchronize()
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    launches = read()
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    emit(rec)
+    return launches
+
+
 def profile_window(torch, device, window, step, span, kernel, label):
     """A window of chunks run as the engine runs them (one bound step, one
     ``span`` per chunk), timed by the host clock and by CUDA events, then
@@ -2307,7 +2577,7 @@ def main() -> int:
     after_count = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     check(after_count == {k: count["chunks"] if k == SCATTER[0] else 0 for k in after_count},
           f"phase 3 ran {count['chunks']} chunks and launched {after_count}: not the fused K1 once per chunk")
-    phase_pairs(torch, np, cooc_engine, cooc, dense_engine, dense_host_s)
+    _, cooc_counts, cooc_pairs = phase_pairs(torch, np, cooc_engine, cooc, dense_engine, dense_host_s)
     phase_wide_dense(torch, np, SelfJoinConfig, SelfJoinEngine, paper_dataset)
     launches = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES}
     emit({"phase": "launches", "phase_3": after_count, "phases_3_4": launches})
@@ -2319,6 +2589,10 @@ def main() -> int:
         check(n > 0, f"{name} was never launched on the main path")
     # the serving path: its own counters, from 0 (phase 3-4's line stays as read above)
     serving = phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_engine, args.seed)
+    # the distributed tier: its own counters, from 0
+    distributed = phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, args.seed)
+    for name in (SCATTER[0], PAIRS[0], "dense_count_scatter"):
+        check(distributed[name] > 0, f"{name} was never launched on the distributed path")
 
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
@@ -2326,7 +2600,7 @@ def main() -> int:
          "ms": real[name]["ms"], "plain_ms": real[name]["plain_ms"],
          "bound_ms": real[name]["bound_ms"], "bound_by": real[name]["bound_by"],
          "library_ms": real[name]["library_ms"], "timing": "torch.profiler",
-         "serving_launches": serving[name],
+         "serving_launches": serving[name], "distributed_launches": distributed[name],
          **({"earlier_ms": real[name]["earlier_ms"], "earlier": real[name]["earlier"]}
             if "earlier_ms" in real[name] else {})}
         for name in ("tile_pair_distance", "dense_tile_distance")
@@ -2338,6 +2612,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "earlier_ms": r["earlier_ms"],
             "earlier": r["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
+            "distributed_launches": distributed[name],
         })
     for name, (source, replaces) in DENSE_STEPS.items():
         s = steps[name]
@@ -2346,8 +2621,9 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "earlier_ms": s["earlier_ms"],
             "earlier": s["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
+            "distributed_launches": distributed[name],
         })
-    rows.append(attention_row(attn, serving))
+    rows.append(attention_row(attn, serving, distributed))
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

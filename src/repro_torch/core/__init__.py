@@ -30,3 +30,5 @@ from repro_torch.core.grid import (  # noqa: F401
     build_tile_plan,
 )
 from repro_torch.core.tuning import KEstimate, estimate_k_costs, select_k  # noqa: F401
+from repro_torch.core.dist_engine import DistributedSelfJoinEngine  # noqa: F401
+from repro_torch.core.partition import make_partition, assign_dynamic, simulate_scaling  # noqa: F401

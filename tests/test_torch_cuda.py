@@ -21,7 +21,10 @@ the result-size estimate's per-pair kernel; the serving tests hold
 index on one request stream with churn (answers and ``ServiceStats``,
 ``num_traces`` included), and check that its chunk loops launch only the
 fused steps; the churn aux pass at a 262,144-row table stays within a few
-blocks of card memory.  Flash attention compares within 2e-5 in f32 and
+blocks of card memory; the distributed engine on the card equals the same
+engine on the CPU (counts, pair arrays row for row, kNN, stats) and its
+blocks launch only the fused steps, and ``ring_self_join_counts`` on a
+one-rank NCCL group equals the brute force.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -392,6 +395,86 @@ def test_aux_pass_at_a_large_table_stays_bounded(cuda):
     want = aux_membership(torch.from_numpy(q), torch.from_numpy(pts[cols]), cols.size, eps)
     assert want.any() and not want.all()
     np.testing.assert_array_equal(got[:, torch.from_numpy(cols).to(cuda)].cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode", ["indexed", "dense"])
+@pytest.mark.parametrize("n,eps,tile_size,dim_block,workers,assignment", [
+    (1003, 0.3, 16, 8, 4, "round_robin"), (1500, 0.35, 64, 32, 3, "dynamic")])
+def test_distributed_on_the_card_equals_the_cpu(cuda, mode, n, eps, tile_size, dim_block, workers, assignment):
+    """The host-driven distributed engine on the card against the same
+    engine on the CPU: ``count()``, ``self_join_pairs()`` (pair arrays row
+    for row) and ``knn`` equal, every ``SelfJoinStats`` field too; the
+    blocks' chunk loops launch the tier's fused count kernel once per count
+    chunk and its fused pairs kernel twice per pairs chunk, nothing else."""
+    from repro_torch.core import DistributedSelfJoinEngine
+
+    rng = np.random.default_rng(n)
+    centers = rng.random((12, 16))
+    d = centers[rng.integers(0, 12, n)] + rng.normal(0, 0.05, (n, 16))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, k=4, tile_size=tile_size, dim_block=dim_block, execution=mode)
+    eng = EngineConfig(count_chunk=64, pairs_chunk=16)
+    kw = dict(num_workers=workers, assignment=assignment, engine_config=eng)
+    card = DistributedSelfJoinEngine(d, cfg, device=cuda, **kw)
+    host = DistributedSelfJoinEngine(d, cfg, device="cpu", **kw)
+    assert all(e.device.type == "cuda" for e in card.shards)
+    count_kernel, pairs_kernel = SERVICE_STEPS[mode]
+
+    before = _launches()
+    got = card.count()
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    assert grew == {k: got.stats.num_chunks if k == count_kernel else 0 for k in grew}
+    want = host.count()
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    assert got.stats.num_chunks > workers and got.stats.num_results > n
+
+    before = _launches()
+    with obs.capture() as cap:
+        got = card.self_join_pairs()
+        kn = card.knn(5, eps0=eps / 4)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    n_count = cap.span_count("ring.block.count.chunk", "dispatch")
+    n_pairs = cap.span_count("ring.block.pairs.chunk", "dispatch")
+    assert grew == {k: n_count if k == count_kernel else 2 * n_pairs if k == pairs_kernel else 0 for k in grew}
+    assert n_pairs > got.stats.num_chunks > 0 and kn.eps_rounds > 1
+    want = host.self_join_pairs()
+    np.testing.assert_array_equal(got.pairs, want.pairs)  # in order
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    want = host.knn(5, eps0=eps / 4)
+    for name in ("indices", "distances", "counts"):
+        np.testing.assert_array_equal(getattr(kn, name), getattr(want, name), err_msg=name)
+    assert (kn.eps_used, kn.eps_rounds) == (want.eps_used, want.eps_rounds)
+    assert dataclasses.asdict(kn.stats) == dataclasses.asdict(want.stats)
+
+
+def test_ring_counts_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """``ring_self_join_counts`` over a one-rank NCCL group (the identity
+    ring: no point-to-point op, one all-gather) equals the float64 brute
+    force on 1/64-quantized points, and so does a ring over a one-rank
+    ``DeviceMesh`` with ``overlap=True``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.brute import brute_counts
+    from repro_torch.core.distributed import ring_self_join_counts
+
+    rng = np.random.default_rng(3)
+    d = (np.round(rng.exponential(1 / 40, size=(3001, 16)).clip(0, 1) * 64) / 64).astype(np.float32)
+    want = brute_counts(d, 0.06)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got = ring_self_join_counts(d, 0.06, dist.group.WORLD, row_block=512, device=cuda)
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1), mesh_dim_names=("pod", "data"))
+        got_mesh = ring_self_join_counts(d, 0.06, mesh, ("pod", "data"), device=cuda, overlap=True)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_mesh, want)
 
 
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
