@@ -111,7 +111,25 @@ Phases, each printing one JSON line:
    and a dense-tier count that launches only the dense fused count step.
    Then the ring transport (``ring_self_join_counts``) on a one-rank NCCL
    group the phase creates and destroys, counts equal to phase 4's up to
-   the band.  Multi-GPU stays unverified (one card).
+   the band.  Multi-GPU stays unverified (one card);
+9. fused_ring -- the device-fused ring (``DistributedSelfJoinEngine(...,
+   fused=True)``), after phase 8, with its own launch counters: (a) on a
+   one-rank NCCL group in this process (the payload on the card),
+   CoocTexture ``count()`` equal to the one-worker count (phase 4's),
+   ``self_join_pairs()`` equal to the one-worker host-driven pair set, an
+   eps sweep at FUSED_SWEEP_EPS that builds no new program, and kNN (k=16)
+   over its first FUSED_KNN_N points against the float64 top-k; (b)
+   FUSED_RANKS processes of this script (``--fused-rank``) on the one
+   card, a gloo ring (the payload in host memory), each loading the
+   kernels phase 1 built: Syn16D2M uncut, counts equal to phase 8's
+   4-worker counts row for row, its time split by the engine's spans
+   (block plans, sample, staging copies, chunk loops, exchanges);
+   CoocTexture counts under both assignments equal to phase 8's, pairs
+   equal to phase 8's pair set, and a forced capacity retry equal to the
+   clean join.  Only K1's fused count step, K2's fused pairs step and the
+   pack's hit-rate sample (K1 per pair) may launch.  Phase 8's results
+   reach the processes as files, theirs come back the same way, and past
+   FUSED_DEADLINE_S every rank is killed and the run fails.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -121,7 +139,8 @@ back-to-back calls of a millisecond or more, with the profiler's reading
 of the kernel beside them; each row of the kernels line names its timing.
 Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
-and after phase 7 (``serving_launches``) and phase 8 (``distributed_launches``), and K5's just
+and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``) and phase 9
+(``fused_ring_launches``, its ranks' counters summed), and K5's just
 before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
@@ -355,10 +374,7 @@ def hgmma_counts(path):
 
 
 def phase_device(torch, _build):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_name_limit()
     print(smi, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
@@ -1520,7 +1536,7 @@ def phase_attention(torch, np, fa):
     return rec
 
 
-def attention_row(attn, serving, distributed):
+def attention_row(attn, serving, distributed, fused):
     """K5's entry of the kernels line: per call, the mean over its path's
     calls (one per full-width shape; each shape's numbers are in the
     attention line), and the largest error over them."""
@@ -1544,6 +1560,7 @@ def attention_row(attn, serving, distributed):
                 "(phases 3-4 never call it); times are per call, the mean over those calls",
         "serving_launches": serving["flash_attention_wgmma"],  # phase 7 checks it is 0
         "distributed_launches": distributed["flash_attention_wgmma"],  # phase 8 checks it is 0
+        "fused_ring_launches": fused["flash_attention_wgmma"],  # phase 9 checks it is 0
     }
 
 
@@ -2139,6 +2156,25 @@ def ring_rounds(cap):
     return out
 
 
+def check_knn(torch, np, pts, kn, rows, k, what):
+    """Rows ``rows`` of a kNN result against the float64 top-k of ``pts``
+    (on the card): a row may differ only where the final radius cut a
+    neighbour at the eps boundary, and the distances of the others must lie
+    within 2 float64 ulps.  Returns (rows off at the boundary, max ulps)."""
+    want_rows, want_dist = brute_topk(torch, pts, pts[torch.from_numpy(rows).cuda()], k)
+    got_rows, got_dist = kn.indices[rows], kn.distances[rows]
+    bad = np.nonzero((got_rows != want_rows).any(axis=1))[0]
+    for i in bad:
+        miss = np.setdiff1d(want_rows[i], got_rows[i])
+        d2, bw = boundary_band(pts[int(rows[i]):int(rows[i]) + 1], pts[torch.from_numpy(miss).cuda()])
+        check(bool(((d2 - kn.eps_used ** 2).abs() <= bw).all()),
+              f"{what}: row {rows[i]} misses {miss.tolist()} away from the eps boundary")
+    ok = np.setdiff1d(np.arange(rows.size), bad)
+    ulps = ulps_apart(np, got_dist[ok], want_dist[ok])
+    check(ulps <= 2, f"{what} distances {ulps} float64 ulps off the brute force")
+    return int(bad.size), ulps
+
+
 def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, seed):
     """The distributed tier (``DistributedSelfJoinEngine``, host-driven,
     DIST_WORKERS simulated workers in this process) and the ring transport
@@ -2155,7 +2191,9 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     pairs step twice per pairs chunk); kNN of every point from
     DIST_KNN_EPS0, DIST_KNN_SAMPLE rows against the float64 top-k; a
     dense-tier count (only the dense fused count step).  Returns the
-    phase's launches per kernel."""
+    phase's launches per kernel, and the results phase 9 is held to:
+    Syn16D2M's 4-worker counts, CoocTexture's 4-worker round-robin counts
+    and pairs."""
     import os
     import tempfile
 
@@ -2170,10 +2208,6 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
 
     def read():
         return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
-
-    def only(grew, want, what):
-        check(grew == {k: want.get(k, 0) for k in grew},
-              f"{what} launched {({k: v for k, v in grew.items() if v})}, expected {want}")
 
     def band(pts, rows, eps, *counts):
         """Counts of ``rows`` that differ must lie within the float64 bounds."""
@@ -2193,7 +2227,8 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     t_phase = time.perf_counter()
     rec = {"phase": "distributed", "workers": DIST_WORKERS,
            "multi_gpu": "unverified: one card; the engine's workers run one after another in one process, "
-                        "and the ring transport ran on a one-rank NCCL group (no point-to-point op)"}
+                        "and the ring transport ran on a one-rank NCCL group (no point-to-point op); the fused "
+                        "ring (phase 9) likewise, its 4 ranks being gloo processes on the one card"}
 
     # Syn16D2M, uncut, round robin
     t0 = time.perf_counter()
@@ -2207,7 +2242,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
         count_s = time.perf_counter() - t0
     st = res.stats
     grew = launched_since(before, *mods)
-    only(grew, {SCATTER[0]: st.num_chunks}, f"the Syn16D2M distributed count ({st.num_chunks} chunks)")
+    only_launched(grew, {SCATTER[0]: st.num_chunks}, f"the Syn16D2M distributed count ({st.num_chunks} chunks)")
     check(cap.dropped == 0, f"the obs capture dropped {cap.dropped} events")
     peak = torch.cuda.max_memory_allocated()
     check(res.counts.shape == syn_counts.shape and (res.counts >= 1).all(), "Syn16D2M distributed counts malformed")
@@ -2228,6 +2263,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
         "results": st.num_results, "worker_loads": loads.tolist(), "worker_loads_s": loads_s,
         "diffs_vs_phase3": diffs, "peak_device_bytes": peak, "launches": {k: v for k, v in grew.items() if v},
     }
+    held = {"syn_counts": res.counts}
     del de, res
     torch.cuda.empty_cache()
 
@@ -2247,7 +2283,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
         t0 = time.perf_counter()
         r = engines[assignment].count()
         count_s = time.perf_counter() - t0
-        only(launched_since(before, *mods), {SCATTER[0]: r.stats.num_chunks}, f"the CoocTexture {assignment} count")
+        only_launched(launched_since(before, *mods), {SCATTER[0]: r.stats.num_chunks}, f"the CoocTexture {assignment} count")
         counts[assignment] = r.counts
         out[assignment] = {"build_s": build_s, "count_s": count_s, "chunks": r.stats.num_chunks,
                            "candidates": r.stats.num_candidates,
@@ -2266,7 +2302,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
         pairs_s = time.perf_counter() - t0
     n_count = pcap.span_count("ring.block.count.chunk", "dispatch")
     n_pairs = pcap.span_count("ring.block.pairs.chunk", "dispatch")
-    only(launched_since(before, *mods), {SCATTER[0]: n_count, PAIRS[0]: 2 * n_pairs},
+    only_launched(launched_since(before, *mods), {SCATTER[0]: n_count, PAIRS[0]: 2 * n_pairs},
          f"the CoocTexture pairs ({n_count} count, {n_pairs} pairs chunks)")
     check(n_pairs == rp.stats.num_chunks and n_count + n_pairs == rp.stats.num_device_dispatches,
           "the pairs' chunk spans disagree with its stats")
@@ -2285,6 +2321,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     del got, want, got_key, want_key
     out["pairs"] = {"pairs": int(rp.pairs.shape[0]), "wall_s": pairs_s, "count_chunks": n_count,
                     "pairs_chunks": n_pairs, "diffs_vs_phase4": int(odd.shape[0])}
+    held.update(cooc_counts=counts["round_robin"], cooc_pairs=rp.pairs)
     del rp, odd
 
     # kNN of every point
@@ -2299,18 +2336,8 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     check(set(k for k, v in grew.items() if v) == {SCATTER[0], PAIRS[0]}, f"CoocTexture distributed kNN launched {grew}")
     check(kn.eps_rounds <= 3 and kn.indices.shape == (n, DIST_KNN_K) and (kn.indices >= 0).all(),
           f"CoocTexture distributed kNN: {kn.eps_rounds} rounds, indices {kn.indices.shape}")
-    rows = rng.choice(n, size=DIST_KNN_SAMPLE, replace=False)
-    want_rows, want_dist = brute_topk(torch, cpts, cpts[torch.from_numpy(rows).cuda()], DIST_KNN_K)
-    got_rows, got_dist = kn.indices[rows], kn.distances[rows]
-    bad = np.nonzero((got_rows != want_rows).any(axis=1))[0]
-    for i in bad:  # allowed only where the final radius cut a neighbour at the eps boundary
-        miss = np.setdiff1d(want_rows[i], got_rows[i])
-        d2, bw = boundary_band(cpts[int(rows[i]):int(rows[i]) + 1], cpts[torch.from_numpy(miss).cuda()])
-        check(bool(((d2 - kn.eps_used ** 2).abs() <= bw).all()),
-              f"CoocTexture distributed kNN: row {rows[i]} misses {miss.tolist()} away from the eps boundary")
-    ok = np.setdiff1d(np.arange(rows.size), bad)
-    ulps = ulps_apart(np, got_dist[ok], want_dist[ok])
-    check(ulps <= 2, f"CoocTexture distributed kNN distances {ulps} float64 ulps off the brute force")
+    bad, ulps = check_knn(torch, np, cpts, kn, rng.choice(n, size=DIST_KNN_SAMPLE, replace=False), DIST_KNN_K,
+                          "CoocTexture distributed kNN")
     out["knn"] = {"k": DIST_KNN_K, "eps0": DIST_KNN_EPS0, "eps_used": kn.eps_used, "eps_rounds": kn.eps_rounds,
                   "final_pairs": kn.stats.num_results, "wall_s": knn_s,
                   # the candidate passes' host plans, the rest of their blocks (count and pairs
@@ -2318,7 +2345,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
                   "split_s": {"host_plans": plans_s, "blocks_rest": passes_s - plans_s,
                               "after_passes": knn_s - passes_s},
                   "sampled": DIST_KNN_SAMPLE,
-                  "rows_off_at_boundary": int(bad.size), "max_distance_ulps": ulps,
+                  "rows_off_at_boundary": bad, "max_distance_ulps": ulps,
                   "launches": {k: v for k, v in grew.items() if v}}
     del kn, engines, de
 
@@ -2330,7 +2357,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     t0 = time.perf_counter()
     rd = dd.count()
     dense_s = time.perf_counter() - t0
-    only(launched_since(before, *mods), {"dense_count_scatter": rd.stats.num_chunks}, "the CoocTexture dense count")
+    only_launched(launched_since(before, *mods), {"dense_count_scatter": rd.stats.num_chunks}, "the CoocTexture dense count")
     out["dense"] = {"build_s": build_s, "count_s": dense_s, "chunks": rd.stats.num_chunks,
                     "diffs_vs_phase4": band(cpts, np.nonzero(rd.counts != cooc_counts)[0], COOC_EPS,
                                             rd.counts, cooc_counts)}
@@ -2350,7 +2377,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp)
-    only(launched_since(before, *mods), {}, "the ring transport (torch matmuls only)")
+    only_launched(launched_since(before, *mods), {}, "the ring transport (torch matmuls only)")
     rec["ring"] = {"backend": "nccl", "ranks": 1, "wall_s": ring_s,
                    "diffs_vs_phase4": band(cpts, np.nonzero(rc != cooc_counts)[0], COOC_EPS, rc, cooc_counts)}
     del cpts
@@ -2360,7 +2387,354 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     launches = read()
     rec["launches"] = {k: v for k, v in launches.items() if v}
     emit(rec)
+    return launches, held
+
+
+# -- the fused ring phase -------------------------------------------------------
+
+FUSED_RANKS = 4              # gloo processes on the one card, one ring position each
+FUSED_DEADLINE_S = 600.0     # for the 4 processes together; past it every rank is killed
+FUSED_SWEEP_EPS = 0.05       # CoocTexture's eps sweep, below the packed radius
+FUSED_KNN_N = 8192           # the fused kNN runs on CoocTexture's first points
+FUSED_FORCED_CAP = 1 << 16   # the forced capacity retry's packed cap (a worker holds ~11M pairs)
+
+
+def pair_keys(torch, pairs, n):
+    """Sorted ``a * n + b`` keys of an (R, 2) pair array, on the card."""
+    p = torch.from_numpy(pairs).cuda().long()
+    return torch.sort(p[:, 0] * n + p[:, 1]).values
+
+
+def same_pair_set(torch, a, b, n):
+    """Whether two pair arrays hold the same pairs, each once."""
+    if a.shape != b.shape:
+        return False
+    ka = pair_keys(torch, a, n)
+    return bool(torch.equal(ka, pair_keys(torch, b, n))) and bool((ka[1:] != ka[:-1]).all())
+
+
+def fused_split(cap):
+    """An obs capture of fused joins split by the engine's spans, seconds:
+    the pack (its block plans, the hit-rate sample, the rest: the shard
+    tables, the collectives), and the programs (the staging copies into
+    the combined tables, the chunk loops, the exchanges, the rest: the
+    gathers of the results)."""
+    def total(name):
+        return sum(e.dur_us for e in cap.spans(name)) / 1e6
+
+    pack, plans, sample = total("ring.pack"), total("ring.pack.plan"), total("ring.pack.sample")
+    program = total("ring.fused.count") + total("ring.fused.pairs")
+    stage, chunks, exchange = total("ring.fused.stage"), total("ring.fused.chunks"), total("ring.exchange")
+    return {"pack_s": pack, "block_plans_s": plans, "sample_s": sample, "pack_rest_s": pack - plans - sample,
+            "program_s": program, "staging_s": stage, "chunk_loops_s": chunks, "exchange_s": exchange,
+            "gather_and_rest_s": program - stage - chunks - exchange}
+
+
+def fused_launches(pack, executions):
+    """What one rank's fused joins launch: K1's fused count step once per
+    count chunk with work, K2's fused pairs step twice per pairs chunk with
+    work (per execution), and the pack's hit-rate sample (K1 per pair, one
+    chunk of at most 512 pairs) on the rank that owns the heaviest block."""
+    return {SCATTER[0]: int((pack["args"][6] > 0).sum()) * executions[0],
+            PAIRS[0]: 2 * int((pack["pairs_args"][6] > 0).sum()) * executions[1]}
+
+
+def fused_one_rank(torch, np, cooc, cooc_counts, rng, read, mods):
+    """Phase 9 (a): the fused ring on a one-rank NCCL group (payload on the
+    card), CoocTexture: count, pairs, the eps sweep, kNN."""
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.core import DistributedSelfJoinEngine, SelfJoinConfig
+
+    n = cooc.shape[0]
+    cfg = SelfJoinConfig(eps=COOC_EPS)
+    group = dist.group.WORLD
+    t0 = time.perf_counter()
+    de = DistributedSelfJoinEngine(cooc, cfg, mesh=group, fused=True)
+    build_s = time.perf_counter() - t0
+    before = read()
+    with obs.capture(capacity=1 << 20) as cap:
+        t0 = time.perf_counter()
+        rc = de.count()
+        count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rp = de.self_join_pairs()
+        pairs_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    grew = launched_since(before, *mods)
+    want = fused_launches(de._fused_pack, (1, rp.stats.num_device_dispatches))
+    want["tile_pair_distance"] = 1
+    only_launched(grew, want, "the one-rank fused count and pairs")
+    check(np.array_equal(rc.counts, cooc_counts),
+          "one-rank fused count != the one-worker host-driven count (== phase 4's)")
+    host = de.self_join_pairs(fused=False)  # the one-worker host-driven pairs
+    check(same_pair_set(torch, rp.pairs, host.pairs, n), "one-rank fused pairs != the one-worker host-driven pairs")
+    check(np.array_equal(rp.counts, rc.counts) and sum(rp.stats.worker_pair_cursors) == rp.stats.num_results,
+          "one-rank fused pairs: row sums or cursors disagree")
+    traces = (de.fused_traces, de.fused_pairs_traces)
+    t0 = time.perf_counter()
+    c5 = de.count(FUSED_SWEEP_EPS)
+    p5 = de.self_join_pairs(eps=FUSED_SWEEP_EPS)
+    sweep_s = time.perf_counter() - t0
+    check((de.fused_traces, de.fused_pairs_traces) == traces == (1, 1),
+          f"the eps sweep built programs again: traces {traces} -> {(de.fused_traces, de.fused_pairs_traces)}")
+    check(np.array_equal(np.bincount(p5.pairs[:, 0], minlength=n), c5.counts)
+          and same_pair_set(torch, p5.pairs, de.self_join_pairs(eps=FUSED_SWEEP_EPS, fused=False).pairs, n),
+          f"one-rank fused sweep at eps={FUSED_SWEEP_EPS} != the host-driven pairs")
+    out = {"backend": "nccl", "ranks": 1, "points": int(n), "eps": COOC_EPS, "build_s": build_s,
+           "count_s": count_s, "pairs_s": pairs_s, "split": fused_split(cap), "pairs": int(rp.stats.num_results),
+           "pairs_capacity": rp.stats.pairs_capacity, "overflow_retries": rp.stats.overflow_retries,
+           "count_chunks": rc.stats.num_chunks, "pairs_chunks": rp.stats.num_chunks,
+           "launches": {k: v for k, v in grew.items() if v},
+           "sweep": {"eps": FUSED_SWEEP_EPS, "wall_s": sweep_s, "traces": [de.fused_traces, de.fused_pairs_traces],
+                     "executions": [de.fused_executions, de.fused_pairs_executions]}}
+    del de, host, rp, p5
+
+    # kNN over the first FUSED_KNN_N points: each candidate pass one fused pairs join
+    pts = cooc[:FUSED_KNN_N]
+    dk = DistributedSelfJoinEngine(pts, cfg, mesh=group, fused=True)
+    before = read()
+    t0 = time.perf_counter()
+    kn = dk.knn(DIST_KNN_K)
+    knn_s = time.perf_counter() - t0
+    grew = launched_since(before, *mods)
+    check(set(k for k, v in grew.items() if v) <= {PAIRS[0], "tile_pair_distance"},
+          f"the one-rank fused kNN launched {grew}")
+    bad, ulps = check_knn(torch, np, torch.from_numpy(pts).cuda(), kn,
+                          rng.choice(FUSED_KNN_N, size=DIST_KNN_SAMPLE, replace=False), DIST_KNN_K,
+                          "one-rank fused kNN")
+    out["knn"] = {"points": FUSED_KNN_N, "k": DIST_KNN_K, "eps_used": kn.eps_used, "eps_rounds": kn.eps_rounds,
+                  "wall_s": knn_s, "sampled": DIST_KNN_SAMPLE, "rows_off_at_boundary": bad,
+                  "max_distance_ulps": ulps, "launches": {k: v for k, v in grew.items() if v}}
+    return out
+
+
+def only_launched(grew, want, what):
+    check(grew == {k: want.get(k, 0) for k in grew},
+          f"{what} launched {({k: v for k, v in grew.items() if v})}, expected {want}")
+
+
+def fused_rank_main(rank, tmp):
+    """One rank of phase 9 (b): a process of the FUSED_RANKS-rank gloo ring
+    on the one card (``chip_smoke.py --fused-rank R --fused-dir DIR``).  It
+    loads the kernels the parent built, joins Syn16D2M and CoocTexture
+    fused, holds them to phase 8's results (files in ``tmp``) and writes
+    its numbers to ``tmp/rank<R>.json``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.core import DistributedSelfJoinEngine, SelfJoinConfig, dist_engine
+    from repro_torch.kernels import _build, dense_tile, distance_tile, flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    missing = [name for name in _build.SOURCES if not _build.library_path(name).exists()]
+    check(not missing, f"rank {rank}: the parent did not build {missing}")
+    mods = (distance_tile, dense_tile, flash_attention)
+
+    def read():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rendezvous'}", rank=rank, world_size=FUSED_RANKS)
+    try:
+        group = dist.group.WORLD
+        out = {"rank": rank}
+        syn = np.load(tmp / "syn.npy")
+        t0 = time.perf_counter()
+        de = DistributedSelfJoinEngine(syn, SelfJoinConfig(eps=SYN_EPS), mesh=group, fused=True)
+        out["shard_build_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read()
+        with obs.capture(capacity=1 << 20) as cap:
+            t0 = time.perf_counter()
+            res = de.count()
+            count_s = time.perf_counter() - t0
+        grew = launched_since(before, *mods)
+        pack = de._fused_pack
+        want = fused_launches(pack, (1, 0))
+        want["tile_pair_distance"] = int(bool(cap.span_count("ring.pack.sample")))
+        only_launched(grew, want, f"rank {rank}'s Syn16D2M fused count")
+        diffs = int(np.count_nonzero(res.counts != np.load(tmp / "syn_counts.npy")))
+        check(diffs == 0, f"rank {rank}: the Syn16D2M fused count differs from phase 8's in {diffs} rows")
+
+        # the same program again, the device waited on at the end of each
+        # chunk loop, so the chunk-loop spans hold the kernels' time rather
+        # than their launches (and the staging copies no wait for them)
+        @contextlib.contextmanager
+        def synced(dev):
+            with torch.cuda.device(dev):
+                yield
+            torch.cuda.synchronize(dev)
+
+        plain_on_card, dist_engine.on_card = dist_engine.on_card, synced
+        try:
+            with obs.capture(capacity=1 << 20) as scap:
+                t0 = time.perf_counter()
+                again = de.count()
+                synced_s = time.perf_counter() - t0
+        finally:
+            dist_engine.on_card = plain_on_card
+        check(np.array_equal(again.counts, res.counts) and de.fused_traces == 1,
+              f"rank {rank}: the Syn16D2M re-run differs or built its program again")
+        payload = pack["args"][7:]
+        out["syn16d2m"] = {
+            "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": None, "assignment": de.assignment,
+            "count_s": count_s, "split": fused_split(cap), "synced_run": {"wall_s": synced_s, **fused_split(scap)},
+            "chunks_per_round": int(pack["n_chunks"]), "chunks_with_work": int((pack["args"][6] > 0).sum()),
+            "tile_pairs": res.stats.num_tile_pairs_evaluated, "results": res.stats.num_results,
+            "payload_bytes": sum(int(x.nelement()) * x.element_size() for x in payload),
+            "rotations": FUSED_RANKS - 1, "qt_bytes": int(pack["args"][0].nelement()) * 4,
+            "launches": {k: v for k, v in grew.items() if v}, "diffs_vs_phase8": diffs,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del de, res, again, pack, payload
+        torch.cuda.empty_cache()
+
+        # CoocTexture: count under both assignments, pairs, a forced capacity retry
+        cooc = np.load(tmp / "cooc.npy")
+        n = cooc.shape[0]
+        cfg = SelfJoinConfig(eps=COOC_EPS)
+        want_counts = np.load(tmp / "cooc_counts.npy")
+        cout, engines = {}, {}
+        for assignment in ("round_robin", "dynamic"):
+            engines[assignment] = DistributedSelfJoinEngine(cooc, cfg, mesh=group, fused=True, assignment=assignment)
+            t0 = time.perf_counter()
+            r = engines[assignment].count()
+            cout[assignment] = {"count_s": time.perf_counter() - t0,
+                                "diffs_vs_phase8": int(np.count_nonzero(r.counts != want_counts))}
+            check(cout[assignment]["diffs_vs_phase8"] == 0,
+                  f"rank {rank}: the CoocTexture {assignment} fused count differs from phase 8's")
+        de = engines["round_robin"]
+        before = read()
+        with obs.capture(capacity=1 << 20) as pcap:
+            t0 = time.perf_counter()
+            rp = de.self_join_pairs()
+            pairs_s = time.perf_counter() - t0
+        grew = launched_since(before, *mods)
+        only_launched(grew, fused_launches(de._fused_pack, (0, rp.stats.num_device_dispatches)),
+                      f"rank {rank}'s CoocTexture fused pairs")
+        check(same_pair_set(torch, rp.pairs, np.load(tmp / "cooc_pairs.npy"), n),
+              f"rank {rank}: the CoocTexture fused pair set != phase 8's")
+        check(sum(rp.stats.worker_pair_cursors) == rp.stats.num_results, f"rank {rank}: cursors != num_results")
+        de._fused_pack["pairs_cap"] = FUSED_FORCED_CAP
+        de._fused_pack.pop("pairs_warm", None)
+        t0 = time.perf_counter()
+        rf = de.self_join_pairs()
+        forced_s = time.perf_counter() - t0
+        check(rf.stats.overflow_retries >= 1 and np.array_equal(rf.pairs, rp.pairs),
+              f"rank {rank}: the forced capacity retry ({rf.stats.overflow_retries} retries) != the clean join")
+        out["cooc"] = {
+            "points": int(n), "eps": COOC_EPS, **cout, "pairs_s": pairs_s, "pairs_split": fused_split(pcap),
+            "pairs": int(rp.stats.num_results), "worker_pair_cursors": list(rp.stats.worker_pair_cursors),
+            "pairs_capacity": rp.stats.pairs_capacity, "overflow_retries": rp.stats.overflow_retries,
+            "forced": {"cap": FUSED_FORCED_CAP, "retries": rf.stats.overflow_retries, "wall_s": forced_s,
+                       "pairs_capacity": rf.stats.pairs_capacity},
+            "launches": {k: v for k, v in grew.items() if v},
+        }
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["launches"] = {k: v for k, v in read().items() if v}  # the whole process's
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def fused_four_ranks(torch, np, syn, cooc, held, tmp):
+    """Phase 9 (b): FUSED_RANKS processes of this script on the one card, a
+    gloo ring with a ``file://`` init, the payload carried in host memory.
+    Phase 8's results go to them as files in ``tmp`` and theirs come back
+    the same way; past FUSED_DEADLINE_S every rank is killed and the run
+    fails."""
+    for name, arr in (("syn", syn), ("cooc", cooc), ("syn_counts", held["syn_counts"]),
+                      ("cooc_counts", held["cooc_counts"]), ("cooc_pairs", held["cooc_pairs"])):
+        np.save(tmp / f"{name}.npy", arr)
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(FUSED_RANKS):
+        log = open(tmp / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fused-rank", str(rank), "--fused-dir", str(tmp)],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + FUSED_DEADLINE_S
+    try:
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"the {FUSED_RANKS}-rank fused ring passed its {FUSED_DEADLINE_S:.0f} s deadline")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    wall_s = time.perf_counter() - t0
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"rank{rank}.log").read_text()[-3000:]
+            raise SmokeFailure(f"fused ring rank {rank} exited {p.returncode}:\n{tail}")
+    ranks = [json.loads((tmp / f"rank{rank}.json").read_text()) for rank in range(FUSED_RANKS)]
+    return {"backend": "gloo", "ranks": FUSED_RANKS, "processes_wall_s": wall_s, "per_rank": ranks}
+
+
+def phase_fused(torch, np, syn, cooc, cooc_counts, held, seed):
+    """Phase 9, the device-fused ring (``DistributedSelfJoinEngine(...,
+    fused=True)``), with its own launch counters: (a) a one-rank NCCL group
+    in this process on CoocTexture (``fused_one_rank``), (b) FUSED_RANKS
+    gloo processes on the one card, Syn16D2M uncut and CoocTexture
+    (``fused_four_ranks``), held to phase 8's host-driven results."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+
+    mods = (distance_tile, dense_tile, flash_attention)
+
+    def read():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    t_phase = time.perf_counter()
+    rec = {"phase": "fused_ring", "card": smi_name_limit(),
+           "multi_gpu": "unverified: one card; NCCL ran a one-rank ring (no point-to-point op) and the "
+                        f"{FUSED_RANKS}-rank ring ran as gloo processes on the one card, the payload in host memory"}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            rec["one_rank"] = fused_one_rank(torch, np, cooc, cooc_counts, np.random.default_rng(seed), read, mods)
+        finally:
+            dist.destroy_process_group()
+        launches = read()
+        rec["four_ranks"] = fused_four_ranks(torch, np, syn, cooc, held, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    for r in rec["four_ranks"]["per_rank"]:  # each process counts its own launches
+        for k, v in r["launches"].items():
+            launches[k] += v
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    emit(rec)
     return launches
+
+
+def smi_name_limit():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def profile_window(torch, device, window, step, span, kernel, label):
@@ -2491,6 +2865,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA card, end to end.")
     parser.add_argument("--seed", type=int, default=0, help="seed of the serving phase's queries and churn")
+    parser.add_argument("--fused-rank", type=int, default=None,
+                        help="run one rank of phase 9's gloo ring (the script starts these itself)")
+    parser.add_argument("--fused-dir", type=Path, default=None, help="phase 9's exchange directory")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2505,6 +2882,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # the exactness contract needs IEEE fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args.fused_rank is not None:
+        return fused_rank_main(args.fused_rank, args.fused_dir)
 
     t_start = time.perf_counter()
     phase_device(torch, _build)
@@ -2590,9 +2969,15 @@ def main() -> int:
     # the serving path: its own counters, from 0 (phase 3-4's line stays as read above)
     serving = phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_engine, args.seed)
     # the distributed tier: its own counters, from 0
-    distributed = phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, args.seed)
+    distributed, held = phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, args.seed)
     for name in (SCATTER[0], PAIRS[0], "dense_count_scatter"):
         check(distributed[name] > 0, f"{name} was never launched on the distributed path")
+    # the fused ring: its own counters, from 0, its ranks' summed
+    fused_ring = phase_fused(torch, np, syn, cooc, cooc_counts, held, args.seed)
+    del held
+    check({k for k, v in fused_ring.items() if v} == {SCATTER[0], PAIRS[0], "tile_pair_distance"},
+          f"the fused ring launched {({k: v for k, v in fused_ring.items() if v})}: not K1's fused count step, "
+          "K2's fused pairs step and the sample's K1 per pair alone")
 
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
@@ -2601,6 +2986,7 @@ def main() -> int:
          "bound_ms": real[name]["bound_ms"], "bound_by": real[name]["bound_by"],
          "library_ms": real[name]["library_ms"], "timing": "torch.profiler",
          "serving_launches": serving[name], "distributed_launches": distributed[name],
+         "fused_ring_launches": fused_ring[name],
          **({"earlier_ms": real[name]["earlier_ms"], "earlier": real[name]["earlier"]}
             if "earlier_ms" in real[name] else {})}
         for name in ("tile_pair_distance", "dense_tile_distance")
@@ -2612,7 +2998,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "earlier_ms": r["earlier_ms"],
             "earlier": r["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
-            "distributed_launches": distributed[name],
+            "distributed_launches": distributed[name], "fused_ring_launches": fused_ring[name],
         })
     for name, (source, replaces) in DENSE_STEPS.items():
         s = steps[name]
@@ -2621,9 +3007,9 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "earlier_ms": s["earlier_ms"],
             "earlier": s["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
-            "distributed_launches": distributed[name],
+            "distributed_launches": distributed[name], "fused_ring_launches": fused_ring[name],
         })
-    rows.append(attention_row(attn, serving, distributed))
+    rows.append(attention_row(attn, serving, distributed, fused_ring))
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -25,10 +25,13 @@ the joint ``("pod", "data")`` dims of a 2-D mesh both work.  The caller
 creates and owns the process group; nothing here initialises one.
 
 This module owns the ring transport (``ring_scan``, whose payload is any
-tensor or list / tuple / dict of tensors) and the dense reference on it
-(``make_ring_counts_fn`` / ``ring_self_join_counts``): the payload is the
-raw point block and the local join a row-blocked brute-force count.  The
-grid-indexed distributed join is ``core/dist_engine.py``.
+tensor or list / tuple / dict of tensors), the two collectives the fused
+ring agrees by (``ring_all_gather``, ``ring_broadcast``; tensors travel
+where ``carrier_device`` says the group's backend carries them) and the
+dense reference on the ring (``make_ring_counts_fn`` /
+``ring_self_join_counts``): the payload is the raw point block and the
+local join a row-blocked brute-force count.  The grid-indexed distributed
+join is ``core/dist_engine.py``.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from repro_torch import obs
 from repro_torch.core.snapshot import resolve_device
 
 AxisNames = Union[str, Tuple[str, ...]]
@@ -158,6 +162,44 @@ def _finish_rotation(pending) -> None:
         w.wait()
 
 
+def carrier_device(ring: Ring, device) -> torch.device:
+    """Where ``ring``'s group carries the tensors of a rank that computes on
+    ``device``: the card itself under NCCL, host memory under gloo (which
+    sends no CUDA tensor).  Read from the backend of the group the caller
+    passed; any other pairing raises, and nothing falls back."""
+    dev = torch.device(device)
+    backend = str(dist.get_backend(ring.group))
+    if dev.type == "cuda" and "nccl" in backend:
+        return dev
+    if "gloo" in backend:
+        return torch.device("cpu")
+    raise ValueError(f"a {backend!r} group cannot carry the tensors of a rank computing on {dev}")
+
+
+def _group_index(ring: Ring) -> Sequence[int]:
+    """Index, in a collective's per-rank output list, of each ring position."""
+    if ring.group is None:
+        return list(ring.ranks)
+    return [dist.get_group_rank(ring.group, r) for r in ring.ranks]
+
+
+def ring_all_gather(ring: Ring, x: torch.Tensor) -> torch.Tensor:
+    """Every position's ``x`` (one shape on every rank), stacked in ring
+    order as ``(|p|, *x.shape)`` on ``x``'s device."""
+    y = x.to(carrier_device(ring, x.device)).contiguous()
+    out = [torch.empty_like(y) for _ in range(ring.size)]
+    dist.all_gather(out, y, group=ring.group)
+    return torch.stack([out[i] for i in _group_index(ring)]).to(x.device)
+
+
+def ring_broadcast(ring: Ring, x: torch.Tensor, position: int) -> torch.Tensor:
+    """``x`` as ring position ``position`` holds it, on every rank (``x``'s
+    shape and dtype on every rank), on ``x``'s device."""
+    y = x.to(carrier_device(ring, x.device), copy=True).contiguous()
+    dist.broadcast(y, src=ring.ranks[position], group=ring.group)
+    return y.to(x.device)
+
+
 def ring_scan(ring: Ring, body, carry, payload, *, num_rounds=None, overlap=False):
     """Generic BSP ring, run by every rank of ``ring``.
 
@@ -172,7 +214,8 @@ def ring_scan(ring: Ring, body, carry, payload, *, num_rounds=None, overlap=Fals
     With ``overlap=True`` the exchange for round r+1 is issued before round
     r's body and waited on after it (the paper's Fig. 4 pipeline); the body
     must then not write to the payload.  A one-position ring is the
-    identity and issues no point-to-point op.
+    identity and issues no point-to-point op.  Each exchange (its wait,
+    with ``overlap``) is a ``ring.exchange`` span.
     """
     n = ring.size if num_rounds is None else int(num_rounds)
     moves = ring.size > 1
@@ -182,9 +225,10 @@ def ring_scan(ring: Ring, body, carry, payload, *, num_rounds=None, overlap=Fals
             arriving, pending = _issue_rotation(ring, payload)
         carry = body(r, carry, payload)
         if rotate:
-            if not overlap:
-                arriving, pending = _issue_rotation(ring, payload)
-            _finish_rotation(pending)
+            with obs.span("ring.exchange", "ring", round=r):
+                if not overlap:
+                    arriving, pending = _issue_rotation(ring, payload)
+                _finish_rotation(pending)
             payload = arriving
     return carry
 
@@ -253,13 +297,7 @@ def ring_self_join_counts(
         np.ascontiguousarray(pts[ring.position * per:(ring.position + 1) * per])
     ).to(dev)
     counts = make_ring_counts_fn(mesh, axes, eps, row_block, overlap=overlap)(mine)
-    gathered = [torch.empty_like(counts) for _ in range(psize)]
-    dist.all_gather(gathered, counts, group=ring.group)
-    group_rank = (
-        (lambda r: r) if ring.group is None
-        else (lambda r: dist.get_group_rank(ring.group, r))
-    )
-    full = torch.cat([gathered[group_rank(r)] for r in ring.ranks])
+    full = ring_all_gather(ring, counts).reshape(-1)
     return full.cpu().numpy()[:n_pts].astype(np.int64)
 
 

@@ -326,6 +326,29 @@ class GridSnapshot:
             )
         return self._dense
 
+    def packed_tile_table(self, num_tiles: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side ``(tiles, tile_len)`` padded to ``num_tiles`` rows.
+
+        The fused ring's payload (``core/dist_engine.py``): every shard's
+        tile table is padded to the fleet-wide maximum so all ring
+        positions run one shape; padding rows carry ``tile_len == 0``, so
+        they contribute nothing wherever a padded pair list references them.
+        """
+        t = self.config.tile_size
+        tiles = np.zeros((num_tiles, t, self.n_pad), np.float32)
+        tile_len = np.zeros(num_tiles, np.int32)
+        if self.plan is not None and self.plan.num_tiles:
+            real, lens = ops.make_tiles(
+                self.grid.pts_sorted,
+                self.plan.tile_start,
+                self.plan.tile_len,
+                t,
+                self.config.dim_block,
+            )
+            tiles[: real.shape[0]] = real
+            tile_len[: lens.shape[0]] = lens
+        return tiles, tile_len
+
 
 def snapshot_from_numpy(fields: dict, config: SelfJoinConfig, device="cuda") -> GridSnapshot:
     """The port's ``GridSnapshot`` over another package's snapshot arrays.

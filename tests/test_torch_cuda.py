@@ -477,6 +477,60 @@ def test_ring_counts_on_a_one_rank_nccl_group(cuda, tmp_path):
     np.testing.assert_array_equal(got_mesh, want)
 
 
+@pytest.mark.parametrize("n,eps,tile_size,dim_block", [(1003, 0.3, 16, 8), (1500, 0.35, 64, 32)])
+def test_fused_ring_on_one_rank_groups(cuda, tmp_path, n, eps, tile_size, dim_block):
+    """The fused ring on a one-rank NCCL group (the payload on the card)
+    equals the host-driven engine: ``count()``, and ``self_join_pairs()``'s
+    pair set with the cursors accounting for every pair; it launches K1's
+    fused count step once per count chunk with work, K2's fused pairs step
+    twice per pairs chunk with work and the pack's hit-rate sample (K1 per
+    pair, one launch), nothing else.  The same engine over a one-rank gloo
+    group on the card (the payload in host memory, copied into the combined
+    table each round) gives the same results, the pairs in the same order."""
+    import torch.distributed as dist
+
+    from repro_torch.core import DistributedSelfJoinEngine
+
+    rng = np.random.default_rng(n)
+    centers = rng.random((12, 16))
+    d = centers[rng.integers(0, 12, n)] + rng.normal(0, 0.05, (n, 16))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, k=4, tile_size=tile_size, dim_block=dim_block)
+    eng = EngineConfig(count_chunk=64, pairs_chunk=16)
+    host = DistributedSelfJoinEngine(d, cfg, num_workers=1, engine_config=eng, device=cuda)
+    want_count, want_pairs = host.count(), host.self_join_pairs()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    got = {}
+    try:
+        for backend in ("nccl", "gloo"):
+            group = dist.group.WORLD if backend == "nccl" else dist.new_group(backend="gloo")
+            de = DistributedSelfJoinEngine(d, cfg, mesh=group, engine_config=eng, fused=True, device=cuda)
+            before = _launches()
+            count, pairs = de.count(), de.self_join_pairs()
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in _launches().items()}
+            pack = de._fused_pack
+            want = {"tile_pair_count_scatter": int((pack["args"][6] > 0).sum()),
+                    "tile_pair_pairs_compact": 2 * int((pack["pairs_args"][6] > 0).sum())
+                    * pairs.stats.num_device_dispatches,
+                    "tile_pair_distance": 1}
+            assert grew == {k: want.get(k, 0) for k in grew}
+            assert want["tile_pair_count_scatter"] > 1 and want["tile_pair_pairs_compact"] > 2
+            assert pack["args"][0].device.type == "cuda"
+            assert pack["args"][7].device.type == ("cuda" if backend == "nccl" else "cpu")
+            got[backend] = (count, pairs)
+    finally:
+        dist.destroy_process_group()
+    want_set = set(map(tuple, want_pairs.pairs.tolist()))
+    for count, pairs in got.values():
+        np.testing.assert_array_equal(count.counts, want_count.counts)
+        np.testing.assert_array_equal(pairs.counts, want_count.counts)
+        assert set(map(tuple, pairs.pairs.tolist())) == want_set and len(pairs.pairs) == len(want_set)
+        assert sum(pairs.stats.worker_pair_cursors) == pairs.stats.num_results
+    np.testing.assert_array_equal(got["nccl"][1].pairs, got["gloo"][1].pairs)
+
+
 ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (256, 256),
              (20, 12), (12, 40), (264, 64)]  # not multiples of 8 up to 256: bf16 stays on the CUDA cores
 ATTN_LENS = [(128, 128), (96, 160), (160, 96)]     # ragged against the kernels' 64- and 128-row tiles

@@ -219,14 +219,25 @@ def test_edge_cases_match_reference(name, assignment):
 
 
 def test_fused_ring_is_not_ported():
+    """Since the fused ring is ported (``tests/test_torch_fused_ring.py``),
+    this holds what a host-driven engine does with ``fused``: the
+    reference's ``ValueError`` texts where no ring exists, and the host
+    path for ``fused=False``."""
     d, eps = DATA["duplicated6"]
-    cfg = SelfJoinConfig(**_kw(eps))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        DistributedSelfJoinEngine(d, cfg, num_workers=2, fused=True, device="cpu")
-    port = DistributedSelfJoinEngine(d, cfg, num_workers=2, device="cpu")
-    for call in (lambda: port.self_join_pairs(fused=True), lambda: port.knn(3, fused=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-            call()
+    kw = _kw(eps)
+    with pytest.raises(ValueError) as want:
+        ref_core.DistributedSelfJoinEngine(d, ref_core.SelfJoinConfig(**kw), num_workers=2, fused=True)
+    with pytest.raises(ValueError) as got:
+        DistributedSelfJoinEngine(d, SelfJoinConfig(**kw), num_workers=2, fused=True, device="cpu")
+    assert str(got.value) == str(want.value) == "fused=True needs a mesh (one ring position per device)"
+    ref, port = _engines(d, kw, num_workers=2)
+    for fn in (lambda e: e.self_join_pairs(fused=True), lambda e: e.knn(3, fused=True)):
+        with pytest.raises(ValueError) as want:
+            fn(ref)
+        with pytest.raises(ValueError) as got:
+            fn(port)
+        assert str(got.value) == str(want.value)
+        assert "fused=True requires an engine constructed with fused=True" in str(got.value)
     assert port.self_join_pairs(fused=False).pairs.shape[0] == port.count().stats.num_results
 
 
