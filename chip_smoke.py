@@ -129,7 +129,31 @@ Phases, each printing one JSON line:
    clean join.  Only K1's fused count step, K2's fused pairs step and the
    pack's hit-rate sample (K1 per pair) may launch.  Phase 8's results
    reach the processes as files, theirs come back the same way, and past
-   FUSED_DEADLINE_S every rank is killed and the run fails.
+   FUSED_DEADLINE_S every rank is killed and the run fails;
+10. downstream -- the legacy and downstream paths, after phase 9, with its
+   own launch counters, on CoocTexture at eps=0.1 with defaults: (a)
+   ``self_join_hostloop`` counts, which must launch only K1 per pair, once
+   per ``ops.tile_counts`` chunk, and equal phase 4's counts and the
+   engine's ``num_candidates`` / ``dim_blocks_skipped``, timed beside the
+   engine's ``count()``; (b) its pairs, which must launch K2 per pair once
+   per ``ops.tile_mask`` chunk of each batch plus the estimate's K1, equal
+   phase 4's pair set, raise the reference's text below ``max_pairs``, and
+   whose wall is split into K2's kernel time (CUDA events), the mask
+   copies and the host's extraction; (c) the EGO CPU baseline
+   (``ego_join_counts``) on all points against phase 4's counts up to the
+   eps boundary band (paper Table 3's comparison); (d) near-duplicate
+   dedup of DEDUP_EXAMPLES token examples (DEDUP_PLANTED planted
+   near-copies) on the card at eps DEDUP_EPS, which must launch only the
+   estimate's K1 and K2's fused pairs step (T = 32), held against a
+   float64 brute force on the card and its connected components; (e) an
+   obs capture of CoocTexture's ``count()`` + ``pairs()`` written as a
+   Chrome trace and read by ``python -m repro_torch.obs.report`` in a
+   subprocess (its dispatch spans equal the joins' dispatches; a
+   truncated copy exits 1); (f) the ``torch.profiler`` bridge, run before
+   phase 3 with the other profiler sessions: CoocTexture's ``count()``
+   under the profiler inside ``obs.capture(torch_bridge=True)`` holds one
+   ``engine.count.chunk`` range per chunk around K1's fused count kernel,
+   and none without the bridge.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -139,8 +163,9 @@ back-to-back calls of a millisecond or more, with the profiler's reading
 of the kernel beside them; each row of the kernels line names its timing.
 Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
-and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``) and phase 9
-(``fused_ring_launches``, its ranks' counters summed), and K5's just
+and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``), phase 9
+(``fused_ring_launches``, its ranks' counters summed) and phase 10
+(``downstream_launches``), and K5's just
 before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
@@ -1536,7 +1561,7 @@ def phase_attention(torch, np, fa):
     return rec
 
 
-def attention_row(attn, serving, distributed, fused):
+def attention_row(attn, serving, distributed, fused, downstream):
     """K5's entry of the kernels line: per call, the mean over its path's
     calls (one per full-width shape; each shape's numbers are in the
     attention line), and the largest error over them."""
@@ -1561,6 +1586,7 @@ def attention_row(attn, serving, distributed, fused):
         "serving_launches": serving["flash_attention_wgmma"],  # phase 7 checks it is 0
         "distributed_launches": distributed["flash_attention_wgmma"],  # phase 8 checks it is 0
         "fused_ring_launches": fused["flash_attention_wgmma"],  # phase 9 checks it is 0
+        "downstream_launches": downstream["flash_attention_wgmma"],  # phase 10 checks it is 0
     }
 
 
@@ -2730,6 +2756,415 @@ def phase_fused(torch, np, syn, cooc, cooc_counts, held, seed):
     return launches
 
 
+# -- the downstream phase -------------------------------------------------------
+
+DEDUP_EXAMPLES = 100_000     # token examples (64 tokens, vocab 1000), the last DEDUP_PLANTED of
+DEDUP_PLANTED = 10_000       # them near-copies of the first (tests/test_system.py's recipe)
+DEDUP_SEQ = 64
+DEDUP_VOCAB = 1000
+DEDUP_DIM = 16               # hashed n-gram embedding width
+DEDUP_EPS = 0.15             # near-dup radius: ~1e5 pairs at this size, so the union-find stays quick
+DEDUP_BLOCK = 1024           # rows per block of the float64 brute force
+
+
+def chunk_default(fn):
+    """The ``chunk`` default of an ops entry point (the pairs per launch)."""
+    import inspect
+
+    return inspect.signature(fn).parameters["chunk"].default
+
+
+def hostloop_pairs_split(torch, ops, distance_tile, run):
+    """Run ``run()`` (a host-loop pairs join) with its launches timed: CUDA
+    events around each K2-per-pair launch (``distance_tile.tile_pair_distance``
+    with the mask; the card is idle when each starts, so this is the wrapper's
+    enqueue plus the kernel), the host clock inside ``ops.tile_mask``'s
+    generator (the launch, the wait for the kernel, the copy of the mask to
+    the host) and around the whole loop.  Returns (result, wall, split in
+    seconds, the batches' pair counts, mask launches timed)."""
+    orig_kernel, orig_mask = distance_tile.tile_pair_distance, ops.tile_mask
+    events, batches, clock = [], [], {"in_mask": 0.0, "first": None}
+
+    def kernel(*args, **kw):
+        if not kw.get("return_mask"):
+            return orig_kernel(*args, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_kernel(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def tile_mask(tiles, lens, pa, pb, **kw):
+        if clock["first"] is None:
+            clock["first"] = time.perf_counter()
+        batches.append(int(pa.shape[0]))
+        gen = orig_mask(tiles, lens, pa, pb, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(gen)
+            except StopIteration:
+                return
+            finally:
+                clock["in_mask"] += time.perf_counter() - t0
+            yield item
+
+    distance_tile.tile_pair_distance, ops.tile_mask = kernel, tile_mask
+    try:
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    finally:
+        distance_tile.tile_pair_distance, ops.tile_mask = orig_kernel, orig_mask
+    torch.cuda.synchronize()
+    kernel_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    loop = t0 + wall - clock["first"]
+    split = {"before_batches_s": clock["first"] - t0, "mask_launches_s": kernel_s,
+             "mask_copies_s": clock["in_mask"] - kernel_s, "host_extract_s": loop - clock["in_mask"]}
+    return res, wall, split, batches, len(events)
+
+
+def dedup_examples(np, rng):
+    """DEDUP_EXAMPLES token rows; the last DEDUP_PLANTED copy the first ones
+    with every 17th token edited (tests/test_system.py's recipe)."""
+    base = rng.integers(0, DEDUP_VOCAB, (DEDUP_EXAMPLES - DEDUP_PLANTED, DEDUP_SEQ))
+    dups = base[:DEDUP_PLANTED].copy()
+    dups[:, ::17] += 1
+    return np.concatenate([base, dups])
+
+
+def components(torch, edges, n):
+    """Connected components of an undirected pair list on the card: each
+    point's smallest reachable index (label propagation)."""
+    label = torch.arange(n, device=edges.device)
+    a, b = edges[:, 0], edges[:, 1]
+    while True:
+        nxt = label.scatter_reduce(0, a, label[b], reduce="amin")
+        nxt = nxt.scatter_reduce(0, b, nxt[a], reduce="amin")
+        nxt = nxt[nxt]
+        if torch.equal(nxt, label):
+            return label
+        label = nxt
+
+
+def dedup_check(torch, np, emb, res, pairs, eps):
+    """``find_near_duplicates``'s result against a float64 brute force on
+    the card in row blocks: its pair set (``pairs``) may differ from the
+    brute force's only at the eps boundary, and its ``group_of`` / ``keep``
+    / ``num_duplicate_pairs`` must equal the components of the brute-force
+    pair set (the boundary pairs taken as the join decided them).  Returns
+    (the boundary pairs the join decided unlike the float64 d2, the
+    boundary pairs)."""
+    n = emb.shape[0]
+    pts = torch.from_numpy(emb).cuda()
+    got = torch.from_numpy(pairs).cuda().long()
+    got_key = torch.sort(got[:, 0] * n + got[:, 1]).values
+    e2 = float(eps) ** 2
+    sure, maybe, inside = [], [], []
+    for s in range(0, n, DEDUP_BLOCK):
+        d2, bw = boundary_band(pts[s:s + DEDUP_BLOCK], pts)
+        i, j = torch.nonzero(d2 <= e2 - bw, as_tuple=True)
+        sure.append((i + s) * n + j)
+        band = (d2 - e2).abs() <= bw
+        i, j = torch.nonzero(band, as_tuple=True)
+        maybe.append((i + s) * n + j)
+        inside.append((d2 <= e2)[band])
+        del d2, bw, band
+    sure, maybe, inside = torch.cat(sure), torch.cat(maybe), torch.cat(inside)
+    check(bool(torch.isin(sure, got_key).all()), "dedup: the join missed pairs inside eps, away from the boundary")
+    extra = got_key[~torch.isin(got_key, sure)]
+    check(bool(torch.isin(extra, maybe).all()), "dedup: the join found pairs outside eps, away from the boundary")
+    want = torch.cat([sure, extra])  # the brute-force set, boundary pairs as the join decided them
+    edges = torch.stack([want // n, want % n], 1)
+    label = components(torch, edges, n).cpu().numpy()
+    check(np.array_equal(res.group_of, label), "dedup: group_of != the brute-force pair set's components")
+    check(np.array_equal(res.keep, np.unique(label)), "dedup: keep != one representative per component")
+    check(res.num_duplicate_pairs == int((edges[:, 0] != edges[:, 1]).sum()) // 2,
+          "dedup: num_duplicate_pairs != the brute force's")
+    return int((torch.isin(maybe, got_key) != inside).sum()), int(maybe.numel())
+
+
+def phase_downstream(torch, np, cooc, cooc_engine, cooc_counts, cooc_pairs, profiled, seed):
+    """Phase 10, the downstream and legacy paths, with the launch counters
+    from 0: (a) ``self_join_hostloop`` counts on CoocTexture (K1 per pair
+    only, once per ``ops.tile_counts`` chunk), held ``==`` phase 4's counts
+    and the engine's work counters, timed beside the engine's ``count()``;
+    (b) its pairs (K2 per pair once per ``ops.tile_mask`` chunk of each
+    batch, and the estimate's K1), the pair set ``==`` phase 4's, the
+    ``max_pairs`` error, the wall split into kernels, mask copies and host
+    extraction; (c) the EGO CPU baseline on all of CoocTexture against phase
+    4's counts up to the boundary band, timed beside the card's ``count()``;
+    (d) near-duplicate dedup of DEDUP_EXAMPLES token examples on the card
+    (the estimate's K1 and K2's fused pairs step at T = 32) against a float64
+    brute force and its components; (e) an obs capture of CoocTexture's
+    ``count()`` + ``pairs()`` written as a Chrome trace and read by
+    ``python -m repro_torch.obs.report`` in a subprocess, and a truncated
+    copy refused.  ``profiled`` is what ran under torch.profiler before the
+    main path: (f) the bridge check and K2 per pair's device time at the
+    host loop's mask chunk (``phase_bridge``)."""
+    from repro_torch import obs
+    from repro_torch.core import SelfJoinConfig, SelfJoinEngine, ego, self_join_hostloop
+    from repro_torch.data import dedup
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention, ops
+
+    mods = (distance_tile, dense_tile, flash_attention)
+
+    def read():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    t_phase = time.perf_counter()
+    rec = {"phase": "downstream", "card": smi_name_limit(), "dataset": "CoocTexture", "points": int(cooc.shape[0]),
+           "eps": COOC_EPS}
+    cfg = SelfJoinConfig(eps=COOC_EPS)
+    cpts = torch.from_numpy(cooc).cuda()
+
+    def band(rows, *counts):
+        if rows.size:
+            lo, hi = count_bounds(torch, cpts, rows, COOC_EPS)
+            for got in counts:
+                check(bool(((got[rows] >= lo) & (got[rows] <= hi)).all()),
+                      "counts differ from phase 4's beyond the eps boundary")
+        return int(rows.size)
+
+    # (a) the host loop's counts: K1 per pair
+    torch.cuda.synchronize()
+    before = read()
+    t0 = time.perf_counter()
+    hc = self_join_hostloop(cooc, cfg)
+    host_count_s = time.perf_counter() - t0
+    p = hc.stats.num_tile_pairs_evaluated
+    only_launched(launched_since(before, *mods), {"tile_pair_distance": -(-p // chunk_default(ops.tile_counts))},
+                  f"the host-loop count ({p} tile pairs)")
+    check(p == cooc_engine.plan.num_pairs, f"the host loop planned {p} tile pairs, the engine {cooc_engine.plan.num_pairs}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ec = cooc_engine.count()
+    engine_count_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SelfJoinEngine(cooc, cfg).count()
+    engine_cold_s = time.perf_counter() - t0
+    check(np.array_equal(ec.counts, cooc_counts), "the engine's count() != phase 4's")
+    for field in ("num_candidates", "dim_blocks_skipped", "dim_blocks_total", "num_results"):
+        check(getattr(hc.stats, field) == getattr(ec.stats, field),
+              f"host loop {field} {getattr(hc.stats, field)} != the engine's {getattr(ec.stats, field)}")
+    rec["hostloop_count"] = {
+        "wall_s": host_count_s, "engine_count_s": engine_count_s, "engine_build_and_count_s": engine_cold_s,
+        "tile_pairs": p, "launches": -(-p // chunk_default(ops.tile_counts)),
+        "num_candidates": hc.stats.num_candidates, "dim_blocks_skipped": hc.stats.dim_blocks_skipped,
+        "rows_off_phase4": band(np.nonzero(hc.counts != cooc_counts)[0], hc.counts, cooc_counts)}
+
+    # (b) the host loop's pairs: the estimate's K1, then K2 per pair per mask chunk of each batch
+    torch.cuda.synchronize()
+    before = read()
+    hp, host_pairs_s, split, batches, timed = hostloop_pairs_split(
+        torch, ops, distance_tile, lambda: self_join_hostloop(cooc, cfg, return_pairs=True))
+    mask_chunk = chunk_default(ops.tile_mask)
+    masks = sum(-(-b // mask_chunk) for b in batches)
+    n_sample = max(1, min(p, int(round(p * max(cfg.sample_frac, 1e-6)))))  # batching.estimate_result_size's
+    only_launched(launched_since(before, *mods),
+                  {"tile_pair_distance_mask": masks, "tile_pair_distance": -(-n_sample // chunk_default(ops.tile_counts))},
+                  f"the host-loop pairs ({len(batches)} batches, {masks} mask chunks)")
+    check(timed == masks and sum(batches) == p, f"timed {timed} of {masks} mask launches over {sum(batches)} pairs")
+    n = cooc.shape[0]
+    check(np.array_equal(hp.counts, hc.counts), "host-loop pairs: counts != its count mode's")
+    check(same_pair_set(torch, hp.pairs, cooc_pairs, n), "host-loop pairs != phase 4's pair set")
+    total = hp.stats.num_results
+    try:
+        self_join_hostloop(cooc, cfg, return_pairs=True, max_pairs=total - 1)
+        raise SmokeFailure(f"the host loop returned past max_pairs={total - 1}")
+    except RuntimeError as exc:
+        want = f"result exceeded max_pairs={total - 1}; raise the cap or lower eps"
+        check(str(exc) == want, f"host-loop max_pairs error {str(exc)!r} != {want!r}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = cooc_engine.pairs()
+    engine_pairs_s = time.perf_counter() - t0
+    check(same_pair_set(torch, ep.pairs, cooc_pairs, n), "the engine's pairs() != phase 4's")
+    rec["hostloop_pairs"] = {
+        "wall_s": host_pairs_s, "split": split, "engine_pairs_s": engine_pairs_s, "pairs": int(total),
+        "n_b": len(batches), "batch_pairs": batches, "mask_chunk": mask_chunk, "mask_launches": masks,
+        "mask_bytes_each": mask_chunk * cfg.tile_size ** 2,
+        "mask_launch_ms_each": split["mask_launches_s"] * 1e3 / masks,
+        "kernels_device_s": masks * profiled["mask_chunk"]["ms"] / 1e3,
+        "estimate_sample_pairs": n_sample}
+    del hp, ep
+
+    # (c) the EGO CPU baseline, the paper's comparison target (Table 3)
+    t0 = time.perf_counter()
+    eg = ego.ego_join_counts(cooc, COOC_EPS)
+    ego_s = time.perf_counter() - t0
+    rec["ego"] = {"wall_s": ego_s, "engine_count_s": engine_count_s, "sum": int(eg.sum()),
+                  "engine_sum": int(cooc_counts.sum()),
+                  "rows_off_phase4": band(np.nonzero(eg != cooc_counts)[0], eg)}
+
+    # (d) near-duplicate dedup of token examples on the card
+    examples = dedup_examples(np, np.random.default_rng(seed))
+    t0 = time.perf_counter()
+    emb = dedup.hashed_ngram_embed(examples, dim=DEDUP_DIM)
+    embed_s = time.perf_counter() - t0
+    joined = {}
+    self_join = dedup.self_join
+
+    def captured(d, c, *args, **kw):  # keeps the pairs and times the join
+        t = time.perf_counter()
+        out = self_join(d, c, *args, **kw)
+        joined.update(result=out, tile_size=c.tile_size, wall_s=time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # earlier phases' engines
+    before = read()
+    dedup.self_join = captured
+    try:
+        t0 = time.perf_counter()
+        dd = dedup.find_near_duplicates(emb, DEDUP_EPS)
+        dedup_s = time.perf_counter() - t0
+    finally:
+        dedup.self_join = self_join
+    peak = torch.cuda.max_memory_allocated() - resident
+    st = dd.stats
+    grew = launched_since(before, *mods)
+    est = grew["tile_pair_distance"]
+    check(est > 0, "dedup ran no result-size estimate")
+    only_launched(grew, {"tile_pair_distance": est, PAIRS[0]: 2 * st.num_device_dispatches},
+                  f"dedup ({st.num_device_dispatches} pairs chunks)")
+    check(joined["tile_size"] == 32, f"dedup joined at T = {joined['tile_size']}, not 32")
+    off, band_pairs = dedup_check(torch, np, emb, dd, joined["result"].pairs, DEDUP_EPS)
+    first = np.arange(DEDUP_PLANTED)
+    rec["dedup"] = {
+        "examples": DEDUP_EXAMPLES, "planted": DEDUP_PLANTED, "seq": DEDUP_SEQ, "vocab": DEDUP_VOCAB,
+        "dim": DEDUP_DIM, "eps": DEDUP_EPS, "tile_size": joined["tile_size"],
+        "embed_s": embed_s, "join_s": joined["wall_s"], "union_find_s": dedup_s - joined["wall_s"],
+        "pairs": int(st.num_results), "duplicate_pairs": dd.num_duplicate_pairs, "kept": int(dd.keep.size),
+        "planted_found": int((dd.group_of[DEDUP_EXAMPLES - DEDUP_PLANTED + first] == dd.group_of[first]).sum()),
+        "band_pairs_off_float64": off, "band_pairs": band_pairs, "pairs_capacity": st.pairs_capacity,
+        "overflow_retries": st.overflow_retries, "pairs_chunks": st.num_chunks,
+        "launches": {k: v for k, v in grew.items() if v}, "peak_device_bytes_above_resident": peak}
+    del examples, emb, joined, dd
+
+    # (e) the trace report CLI on a capture of CoocTexture's count() + pairs()
+    with obs.capture(capacity=1 << 20) as cap:
+        rc = cooc_engine.count()
+        rp = cooc_engine.pairs()
+    check(cap.dropped == 0, f"the obs capture dropped {cap.dropped} events")
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = ROOT / "build" / "downstream_trace.json"
+    cap.write_chrome_trace(str(path))
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", str(path), "--json"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"the report CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    rep = json.loads(out.stdout)
+    dispatches = sum(a["count"] for a in rep["phases"].get("dispatch", {}).values())
+    want = rc.stats.num_device_dispatches + rp.stats.num_device_dispatches
+    check(dispatches == want, f"the report counts {dispatches} dispatch spans, the joins {want}")
+    bad = ROOT / "build" / "downstream_trace_truncated.json"
+    text = path.read_text()
+    bad.write_text(text[: len(text) // 2])
+    cut = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", str(bad)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    check(cut.returncode == 1 and "cannot parse trace" in cut.stderr,
+          f"the report CLI read a truncated trace: exit {cut.returncode}")
+    rec["trace_report"] = {"trace_bytes": len(text), "spans": rep["num_spans"], "instants": rep["num_instants"],
+                           "dispatch_spans": dispatches, "truncated_exit": cut.returncode}
+    path.unlink()
+    bad.unlink()
+    del rp
+
+    rec["bridge"], rec["k2_per_pair_mask_chunk"] = profiled["bridge"], profiled["mask_chunk"]
+    launches = read()
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return launches
+
+
+def ranges_on(events, names, device_type):
+    """The profiler ranges named in ``names`` on one side: with CUDA activity
+    the profiler mirrors each host range (CPU) on the device timeline
+    (CUDA), spanning the kernels launched inside it."""
+    return [e for e in events if e.name in names and e.device_type == device_type]
+
+
+def kernels_within(events, name):
+    """Device records (kernels, copies, fills) that run inside the
+    device-side mirrors of the ranges ``name``, and the number of mirrors."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ranges_on(events, (name,), DeviceType.CUDA))
+    starts = [a for a, _ in spans]
+    out = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name == name:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.end <= spans[i][1]:
+            out.append(e.name)
+    return out, len(spans)
+
+
+def phase_bridge(torch, engine):
+    """Phase 10's profiler part, run before the main path (every profiler
+    session does).  (f) CoocTexture's indexed ``count()`` under
+    torch.profiler (CPU and CUDA) inside ``obs.capture(torch_bridge=True)``:
+    the profiler must hold one host-side ``engine.count`` range and one
+    ``engine.count.chunk`` range per chunk, and the device records inside
+    the chunk ranges' device-side mirrors must all be K1's fused count
+    kernel (the profiler drops records on this machine, PERF.md §7: at most
+    one per chunk, at least one); with ``torch_bridge=False`` no obs range
+    may appear.  Then K2 per pair's device time on a middle slice of the plan
+    at the host loop's mask chunk (``ops.tile_mask``'s pairs per launch)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.kernels import distance_tile, ops
+
+    names = ("engine.count", "engine.count.chunk")
+    out = {}
+    for bridge in (True, False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with obs.capture(torch_bridge=bridge) as cap:
+                res = engine.count()
+            torch.cuda.synchronize()
+        events = prof.events()
+        ranges = dict(collections.Counter(e.name for e in ranges_on(events, names, DeviceType.CPU)))
+        if not bridge:
+            check(not ranges, f"torch_bridge=False left obs ranges in the profile: {dict(ranges)}")
+            out["ranges_without_bridge"] = 0
+            continue
+        chunks = res.stats.num_chunks
+        check(ranges == {"engine.count": 1, "engine.count.chunk": chunks} == {
+            "engine.count": cap.span_count("engine.count"), "engine.count.chunk": cap.span_count(cat="dispatch")},
+            f"the profiler holds {ranges} for {chunks} chunks")
+        kernels, mirrors = kernels_within(events, "engine.count.chunk")
+        check(0 < len(kernels) <= chunks and mirrors <= chunks and all(K1_KERNEL in k for k in kernels),
+              f"device records inside {mirrors} chunk ranges: {dict(collections.Counter(kernels))} "
+              f"for {chunks} chunks")
+        out.update(chunks=chunks, chunk_ranges=ranges["engine.count.chunk"], device_ranges=mirrors,
+                   kernel_records=len(kernels), kernels=sorted(set(kernels)))
+
+    snap, cfg = engine.snapshot, engine.config
+    size, plan = chunk_default(ops.tile_mask), snap.plan
+    mid = max(0, min(plan.num_pairs - size, plan.num_pairs // 2))
+    pa = torch.from_numpy(plan.pair_a[mid:mid + size].copy()).cuda()
+    pb = torch.from_numpy(plan.pair_b[mid:mid + size].copy()).cuda()
+    ms, records = device_ms(torch, lambda: distance_tile.tile_pair_distance(
+        snap.tiles, snap.tile_len, pa, pb, eps=cfg.eps, dim_block=cfg.dim_block, return_mask=True,
+        num_dims=snap.num_dims), kernel=K1_KERNEL)
+    return {"bridge": out, "mask_chunk": {"pairs": size, "ms": ms, "records": records,
+                                          "timing": "torch.profiler device time per launch of 20"}}
+
+
 def smi_name_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2946,7 +3381,9 @@ def main() -> int:
         cooc_snap.num_points, inputs["dense_tile_distance"][2:4], inputs["dense_tile_distance_mask"][2:4],
         int(cooc.shape[1]), COOC_EPS, db, "CoocTexture dense chunk")
     attn = phase_attention(torch, np, flash_attention)
-    phase_profile(torch, syn_engine, dense_engine, cooc_engine)  # before the main path: no profiler session after it
+    # every profiler session runs before the main path: after phase 4 one kept no record
+    phase_profile(torch, syn_engine, dense_engine, cooc_engine)
+    profiled = phase_bridge(torch, cooc_engine)
 
     # the main path: counters from 0, phases 3 and 4, counters read after
     for mod in (distance_tile, dense_tile):
@@ -2963,9 +3400,9 @@ def main() -> int:
     for name in ("tile_pair_distance_tile_eval", "dense_tile_distance_tile_eval", "tile_pair_distance_mask",
                  "dense_tile_distance_mask"):
         # the earlier kernels, and K2 / K4 per pair: the pairs steps run epilogue (c) instead
-        check(launches.pop(name) == 0, f"the main path launched {name}")
+        check(launches[name] == 0, f"the main path launched {name}")
     for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+        check(n > 0 or name.endswith(("_tile_eval", "_mask")), f"{name} was never launched on the main path")
     # the serving path: its own counters, from 0 (phase 3-4's line stays as read above)
     serving = phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_engine, args.seed)
     # the distributed tier: its own counters, from 0
@@ -2978,6 +3415,12 @@ def main() -> int:
     check({k for k, v in fused_ring.items() if v} == {SCATTER[0], PAIRS[0], "tile_pair_distance"},
           f"the fused ring launched {({k: v for k, v in fused_ring.items() if v})}: not K1's fused count step, "
           "K2's fused pairs step and the sample's K1 per pair alone")
+    # the downstream and legacy paths: their own counters, from 0
+    downstream = phase_downstream(torch, np, cooc, cooc_engine, cooc_counts, cooc_pairs, profiled, args.seed)
+    check({k for k, v in downstream.items() if v} == {"tile_pair_distance", "tile_pair_distance_mask", SCATTER[0],
+                                                      PAIRS[0]},
+          f"the downstream phase launched {({k: v for k, v in downstream.items() if v})}: not K1 / K2 per pair "
+          "and their fused steps alone")
 
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
@@ -2986,19 +3429,22 @@ def main() -> int:
          "bound_ms": real[name]["bound_ms"], "bound_by": real[name]["bound_by"],
          "library_ms": real[name]["library_ms"], "timing": "torch.profiler",
          "serving_launches": serving[name], "distributed_launches": distributed[name],
-         "fused_ring_launches": fused_ring[name],
+         "fused_ring_launches": fused_ring[name], "downstream_launches": downstream[name],
          **({"earlier_ms": real[name]["earlier_ms"], "earlier": real[name]["earlier"]}
             if "earlier_ms" in real[name] else {})}
-        for name in ("tile_pair_distance", "dense_tile_distance")
+        for name in ("tile_pair_distance", "tile_pair_distance_mask", "dense_tile_distance")
     ]
-    # K2 per pair runs nowhere on the main path: its fused pairs step stands in its row
-    for at, (name, source, replaces), r in ((1, SCATTER, fused), (2, PAIRS, indexed_pairs)):
+    rows[1]["host_loop_chunk_ms"] = profiled["mask_chunk"]["ms"]  # K2 per pair at ops.tile_mask's 512 pairs
+    # K2 per pair runs on the host loop's pairs (phase 10) only; on the main
+    # path its fused pairs step (epilogue (c)) runs instead
+    for at, (name, source, replaces), r in ((1, SCATTER, fused), (3, PAIRS, indexed_pairs)):
         rows.insert(at, {
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "earlier_ms": r["earlier_ms"],
             "earlier": r["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
             "distributed_launches": distributed[name], "fused_ring_launches": fused_ring[name],
+            "downstream_launches": downstream[name],
         })
     for name, (source, replaces) in DENSE_STEPS.items():
         s = steps[name]
@@ -3008,8 +3454,9 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "earlier_ms": s["earlier_ms"],
             "earlier": s["earlier"], "timing": "torch.profiler", "serving_launches": serving[name],
             "distributed_launches": distributed[name], "fused_ring_launches": fused_ring[name],
+            "downstream_launches": downstream[name],
         })
-    rows.append(attention_row(attn, serving, distributed, fused_ring))
+    rows.append(attention_row(attn, serving, distributed, fused_ring, downstream))
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

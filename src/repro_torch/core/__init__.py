@@ -6,7 +6,7 @@ from repro_torch.core.types import (  # noqa: F401
     SelfJoinResult,
     SelfJoinStats,
 )
-from repro_torch.core.selfjoin import self_join  # noqa: F401
+from repro_torch.core.selfjoin import self_join, self_join_hostloop  # noqa: F401
 from repro_torch.core.engine import QueryPlanTables, SelfJoinEngine  # noqa: F401
 from repro_torch.core.snapshot import (  # noqa: F401
     GridSnapshot,

@@ -200,13 +200,16 @@ def tile_mask(
     dim_block: int = 32,
     backend: str = "jnp",
     chunk: int = 512,
+    num_dims=None,
 ):
-    """Yield (pair_slice_start, mask (Pc, T, T) int8 numpy) per chunk."""
+    """Yield (pair_slice_start, mask (Pc, T, T) int8 numpy) per chunk;
+    ``num_dims`` as in ``eval_tile_pairs``."""
     tiles = torch.as_tensor(tiles_pts)
     lens = torch.as_tensor(tile_len, device=tiles.device)
     for s, pa, pb, real in _chunks(pair_a, pair_b, chunk, tiles.device):
         _, _, mask = eval_tile_pairs(
             tiles, lens, pa, pb, eps,
             dim_block=dim_block, shortc=True, backend=backend, return_mask=True,
+            num_dims=num_dims,
         )
         yield s, mask[:real].cpu().numpy()

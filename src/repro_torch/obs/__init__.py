@@ -1,9 +1,19 @@
 """Span tracing + metrics registry of the PyTorch port (DESIGN.md #11).
 
 A copy of the JAX package's ``repro.obs`` (kept separate so that
-``repro_torch`` imports nothing of that package), without the jax profiler
-bridge.  The port's engine emits the same spans and events at the same
-seams as the reference engine, so ``capture()`` windows read alike:
+``repro_torch`` imports nothing of that package):
+
+- :mod:`repro_torch.obs.trace` -- the span tracer, its ring buffer, the
+  Chrome-trace exporter, and the ``torch.profiler`` bridge
+  (``capture(torch_bridge=True)``, the counterpart of the reference's
+  ``jax_bridge``);
+- :mod:`repro_torch.obs.metrics` -- the counter/gauge/histogram registry
+  that the stats objects are mirrored into;
+- :mod:`repro_torch.obs.report` -- the per-phase/per-worker breakdown CLI
+  (``python -m repro_torch.obs.report TRACE.json``).
+
+The port's engine emits the same spans and events at the same seams as the
+reference engine, so ``capture()`` windows read alike:
 
     from repro_torch import obs
 
@@ -92,10 +102,10 @@ def set_gauge(name: str, value: float, **labels) -> None:
 def mirror_selfjoin_stats(stats, *, path: str, mode: str) -> None:
     """Mirror a completed join's ``SelfJoinStats`` into the registry.
 
-    ``path`` names the execution path ("engine"), ``mode`` the result shape
-    ("count", "pairs", "count_query").  The tier label is the tier that
-    actually ran.  Counts mirror 1:1, with the same metric names as the JAX
-    package.
+    ``path`` names the execution path ("engine", "ring_host", "ring_fused"),
+    ``mode`` the result shape ("count", "pairs", "count_query").  The tier
+    label is the tier that actually ran.  Counts mirror 1:1, with the same
+    metric names as the JAX package.
     """
     if not _trace_mod._state.enabled:
         return
@@ -200,6 +210,9 @@ class Capture:
         """Summed registry delta for ``name`` (labels filter as a subset)."""
         return metric_value(self.metrics, name, **labels)
 
+    def chrome_trace(self) -> dict:
+        return to_chrome_trace(self.events)
+
     def write_chrome_trace(self, path: str) -> str:
         return write_chrome_trace(path, self.events)
 
@@ -208,7 +221,10 @@ class capture:
     """Context manager: record spans + a registry delta over a window.
 
     Enables the tracer on entry (fresh ring buffer) and restores the
-    previous tracer state on exit.
+    previous tracer state on exit: an enclosing ``enable()`` window is
+    re-opened with a fresh buffer and its own ``torch_bridge`` setting.
+    ``torch_bridge=True`` opens a ``torch.profiler.record_function`` range
+    around every span of the window.
     """
 
     def __init__(
@@ -216,16 +232,20 @@ class capture:
         capacity: int = DEFAULT_CAPACITY,
         *,
         registry: Optional[MetricsRegistry] = None,
+        torch_bridge: bool = False,
     ):
         self._capacity = capacity
         self._registry = registry if registry is not None else REGISTRY
+        self._torch_bridge = torch_bridge
         self._cap: Optional[Capture] = None
         self._before: Optional[Dict] = None
         self._prev_enabled = False
+        self._prev_bridge = False
 
     def __enter__(self) -> Capture:
         self._prev_enabled = enabled()
-        enable(self._capacity)
+        self._prev_bridge = _trace_mod._state.bridge is not None
+        enable(self._capacity, torch_bridge=self._torch_bridge)
         self._before = self._registry.snapshot()
         self._cap = Capture()
         return self._cap
@@ -238,5 +258,5 @@ class capture:
         disable()
         clear()
         if self._prev_enabled:
-            enable(self._capacity)
+            enable(self._capacity, torch_bridge=self._prev_bridge)
         return False

@@ -11,12 +11,15 @@ full the oldest events are overwritten and ``dropped_count()`` reports how
 many were lost, so a runaway request stream can never exhaust host memory.
 
 ``to_chrome_trace()`` exports the buffer in Chrome-trace / Perfetto JSON
-(``chrome://tracing``, https://ui.perfetto.dev).
+(``chrome://tracing``, https://ui.perfetto.dev).  ``enable(torch_bridge=True)``
+additionally opens a ``torch.profiler.record_function`` range around every
+span, closed on exit (exceptions included), so obs spans appear as ranges in
+a ``torch.profiler`` trace around the kernels they launched: the port's
+counterpart of the JAX package's ``enable(jax_bridge=True)``.
 
 The PyTorch port keeps its own copy of the tracer, so that ``repro_torch``
-imports nothing of the JAX package.  A ``torch.profiler`` bridge (the
-counterpart of the JAX package's ``enable(jax_bridge=True)``) is not part
-of this copy yet.
+imports nothing of the JAX package.  ``torch`` is imported lazily inside
+:func:`enable`, only when the bridge is asked for.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 DEFAULT_CAPACITY = 65536
 
@@ -68,7 +71,7 @@ class SpanEvent:
 
 
 class _State:
-    __slots__ = ("enabled", "capacity", "buf", "next_i", "dropped", "t0", "lock")
+    __slots__ = ("enabled", "capacity", "buf", "next_i", "dropped", "t0", "bridge", "lock")
 
     def __init__(self):
         self.enabled = False
@@ -77,6 +80,7 @@ class _State:
         self.next_i = 0
         self.dropped = 0
         self.t0 = 0.0
+        self.bridge: Optional[Callable[[str], Any]] = None
         self.lock = threading.Lock()
 
 
@@ -89,22 +93,35 @@ def enabled() -> bool:
     return _state.enabled
 
 
-def enable(capacity: int = DEFAULT_CAPACITY) -> None:
-    """Start recording into a fresh ring buffer of ``capacity`` events."""
+def enable(capacity: int = DEFAULT_CAPACITY, *, torch_bridge: bool = False) -> None:
+    """Start recording into a fresh ring buffer of ``capacity`` events.
+
+    ``torch_bridge=True`` wraps every span in a
+    ``torch.profiler.record_function`` range so obs spans appear in
+    ``torch.profiler`` timelines too.
+    """
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
+    bridge = None
+    if torch_bridge:
+        from torch.profiler import record_function
+
+        bridge = record_function
     with _state.lock:
         _state.capacity = int(capacity)
         _state.buf = []
         _state.next_i = 0
         _state.dropped = 0
         _state.t0 = time.perf_counter()
+        _state.bridge = bridge
         _state.enabled = True
 
 
 def disable() -> None:
-    """Stop recording.  The buffer stays readable via :func:`events`."""
+    """Stop recording and drop the bridge.  The buffer stays readable via
+    :func:`events`; a span opened under the bridge still closes its range."""
     _state.enabled = False
+    _state.bridge = None
 
 
 def clear() -> None:
@@ -172,7 +189,7 @@ _NOOP = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "cat", "attrs", "_t0", "_depth")
+    __slots__ = ("name", "cat", "attrs", "_t0", "_depth", "_ann")
 
     def __init__(self, name: str, cat: str, attrs: Dict[str, Any]):
         self.name = name
@@ -180,6 +197,7 @@ class _Span:
         self.attrs = attrs
         self._t0 = 0.0
         self._depth = 0
+        self._ann = None
 
     def set(self, **attrs):
         """Attach attributes discovered mid-span (e.g. sampled hit rates)."""
@@ -190,11 +208,17 @@ class _Span:
         stack = _depth_stack()
         self._depth = len(stack)
         stack.append(self.name)
+        bridge = _state.bridge
+        if bridge is not None:
+            self._ann = bridge(self.name)
+            self._ann.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
         stack = _depth_stack()
         if stack:
             stack.pop()

@@ -24,7 +24,10 @@ fused steps; the churn aux pass at a 262,144-row table stays within a few
 blocks of card memory; the distributed engine on the card equals the same
 engine on the CPU (counts, pair arrays row for row, kNN, stats) and its
 blocks launch only the fused steps, and ``ring_self_join_counts`` on a
-one-rank NCCL group equals the brute force.  Flash attention compares within 2e-5 in f32 and
+one-rank NCCL group equals the brute force; the host-loop join and dedup
+on the card equal the same calls on the CPU, launching K1 / K2 per pair per
+``ops`` chunk (dedup: the fused pairs step), and the profiler bridge puts
+one range around each count chunk's fused kernel.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -46,7 +49,7 @@ from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    ATTN_FULL_TOL, DENSE_CASES, K1_CASES, K2_CASES, dense_sweep_case, k1_sweep_case, k2_sweep_case,
+    ATTN_FULL_TOL, DENSE_CASES, K1_CASES, K2_CASES, dense_sweep_case, k1_sweep_case, k2_sweep_case, phase_bridge,
 )
 
 pytestmark = pytest.mark.cuda
@@ -536,6 +539,96 @@ ATTN_DIMS = [(16, 16), (32, 32), (48, 16), (64, 64), (128, 128), (192, 128), (25
 ATTN_LENS = [(128, 128), (96, 160), (160, 96)]     # ragged against the kernels' 64- and 128-row tiles
 ATTN_CHUNKS = [(32, 32), (16, 32), (512, 512)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("n,dim_block,eps,batch_size", [(16, 32, 0.15, 10 ** 8), (20, 8, 0.15, 20000),
+                                                        (384, 32, 0.9, 50000)])
+def test_hostloop_on_the_card_equals_the_cpu(cuda, monkeypatch, n, dim_block, eps, batch_size):
+    """``self_join_hostloop`` on the card against the same call on the CPU:
+    counts, the pair array row for row and every stats field; counts mode
+    launches K1 per pair once per ``ops.tile_counts`` chunk, pairs mode K2
+    per pair once per ``ops.tile_mask`` chunk of each batch (small
+    ``batch_size`` values force more batches) plus the estimate's K1."""
+    from repro_torch.core import batching, self_join_hostloop
+
+    rng = np.random.default_rng(n + 7)
+    centers = rng.random((20, n))
+    d = centers[rng.integers(0, 20, 3000)] + rng.normal(0, 0.03, (3000, n))
+    d = (np.round(d.clip(0, 1) * 64) / 64).astype(np.float32)
+    cfg = SelfJoinConfig(eps=eps, dim_block=dim_block, batch_size=batch_size)
+    before = _launches()
+    got = self_join_hostloop(d, cfg, device=cuda)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    p = got.stats.num_tile_pairs_evaluated
+    assert grew == {k: -(-p // 4096) if k == "tile_pair_distance" else 0 for k in grew}
+    want = self_join_hostloop(d, cfg, device="cpu")
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    if n != 16:
+        assert got.stats.dim_blocks_skipped > 0
+
+    ranges = []
+    batch_ranges = batching.batch_ranges
+
+    def spy(num_pairs, num_batches):
+        ranges.extend(batch_ranges(num_pairs, num_batches))
+        return batch_ranges(num_pairs, num_batches)
+
+    monkeypatch.setattr(batching, "batch_ranges", spy)
+    before = _launches()
+    got = self_join_hostloop(d, cfg, return_pairs=True, device=cuda)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    masks = sum(-(-(hi - lo) // 512) for lo, hi in ranges)
+    assert len(ranges) >= 3 and ranges[-1][1] == p
+    assert grew == {k: masks if k == "tile_pair_distance_mask" else 1 if k == "tile_pair_distance" else 0
+                    for k in grew}
+    want = self_join_hostloop(d, cfg, return_pairs=True, device="cpu")
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+
+
+def test_dedup_on_the_card_equals_the_cpu(cuda):
+    """Near-duplicate dedup (``find_near_duplicates`` over ``self_join`` at
+    T = 32) on the card against the CPU on 1/64-quantized embeddings, with
+    planted copies; the join launches only the estimate's K1 and K2's fused
+    pairs step (twice per chunk)."""
+    from repro_torch.data import dedup
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 1000, (1800, 64))
+    dups = base[:200].copy()
+    dups[:, ::17] += 1
+    ex = np.concatenate([base, dups, base[:20]])
+    emb = (np.round(dedup.hashed_ngram_embed(ex, dim=16) * 64) / 64).astype(np.float32)
+    before = _launches()
+    got = dedup.find_near_duplicates(emb, 0.2, device=cuda)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _launches().items()}
+    est = grew["tile_pair_distance"]
+    assert est > 0
+    assert grew == {k: 2 * got.stats.num_device_dispatches if k == "tile_pair_pairs_compact"
+                    else est if k == "tile_pair_distance" else 0 for k in grew}
+    want = dedup.find_near_duplicates(emb, 0.2, device="cpu")
+    np.testing.assert_array_equal(got.keep, want.keep)
+    np.testing.assert_array_equal(got.group_of, want.group_of)
+    assert got.num_duplicate_pairs == want.num_duplicate_pairs >= 20
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+
+
+def test_bridge_ranges_surround_the_fused_count_kernel(cuda):
+    """The torch.profiler bridge on the card (``chip_smoke.phase_bridge``):
+    one ``engine.count.chunk`` range per chunk, the kernel records inside
+    them all K1's fused count kernel, no obs range with the bridge off."""
+    rng = np.random.default_rng(3)
+    d = (np.round(rng.random((4000, 16)) * 64) / 64).astype(np.float32)
+    eng = SelfJoinEngine(d, SelfJoinConfig(eps=0.2), EngineConfig(count_chunk=256), device=cuda)
+    out = phase_bridge(torch, eng)["bridge"]
+    assert out["chunk_ranges"] == out["chunks"] > 1
+    assert 0 < out["kernel_records"] <= out["chunks"]
+    assert out["ranges_without_bridge"] == 0
 
 
 def _qkv(bh, sq, sk, dh, dv, dtype, seed, device):
