@@ -153,7 +153,26 @@ Phases, each printing one JSON line:
    phase 3 with the other profiler sessions: CoocTexture's ``count()``
    under the profiler inside ``obs.capture(torch_bridge=True)`` holds one
    ``engine.count.chunk`` range per chunk around K1's fused count kernel,
-   and none without the bridge.
+   and none without the bridge;
+11. model_serve -- the model serving path (``repro_torch.models``,
+   ``launch/serve``), after phase 10 and after the join's engines and
+   arrays are freed, with its own launch counters: (a) the six
+   attention-family archs' reduced configs on the card against the port on
+   the CPU with the same parameters, at fp32 (within 1e-4) and bf16
+   activations (within 2e-2): prefill logits and caches, 8 teacher-forced
+   decode steps' logits and caches, greedy tokens (equal but on a near-tie
+   of the CPU's top 2); (b) gemma3-12b at full width and depth
+   (11,765,419,776 fp32 parameters drawn on the card from a
+   ``torch.Generator``) serving 4 prompts of 1536 tokens and 16 new tokens,
+   so the local layers' ring buffer (window 1024) wraps in prefill and in
+   decode: prefill ms, decode ms per token, tokens/s, peak device memory,
+   finite logits and ids below the vocab, and a split (one local and one
+   global layer by part, CUDA events; a decode step by the host clock and
+   replayed as a CUDA graph); (c) the same weights at batch 1 with fp32
+   activations: prefill on 1039 tokens plus one decode step against
+   ``forward_train`` (rel < 5e-3), ``_flash`` against ``attention_plain``
+   at a local and a global layer (1e-5); (d) no kernel launches: the
+   models call none.  ``--model-serve-only`` runs this phase alone.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -164,8 +183,8 @@ of the kernel beside them; each row of the kernels line names its timing.
 Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
 and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``), phase 9
-(``fused_ring_launches``, its ranks' counters summed) and phase 10
-(``downstream_launches``), and K5's just
+(``fused_ring_launches``, its ranks' counters summed), phase 10
+(``downstream_launches``) and phase 11 (``model_serve_launches``, all 0), and K5's just
 before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
@@ -174,6 +193,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -3084,6 +3104,280 @@ def phase_downstream(torch, np, cooc, cooc_engine, cooc_counts, cooc_pairs, prof
     return launches
 
 
+# -- phase 11: the model serving path -----------------------------------------
+
+MODEL_ARCHS = ("gemma3_12b", "phi3_mini_3p8b", "qwen3_32b", "qwen2p5_32b", "seamless_m4t_medium",
+               "llama3p2_vision_11b")   # the attention-family archs the port has (ROADMAP item 13a)
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # card against the CPU, max|diff| / max|ref|
+MODEL_PROMPT, MODEL_DECODE = 12, 8     # (a): reduced gemma3's window is 8, so its ring wraps
+SERVE_ARCH = "gemma3_12b"              # (b): full width and depth, 48 layers, fp32 params
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1536, 16   # the prompt passes the local window of 1024
+SERVE_PARAMS = 11_765_419_776          # the reference's count_params_analytic at gemma3-12b
+SERVE_HEADROOM = 8e9                   # device bytes (b) needs beyond the weights
+CONSIST_LEN = 1040                     # (c): prefill on 1039 tokens wraps the local layers' ring
+CONSIST_TOL = 5e-3                     # tests/test_archs_smoke.py's own decode / train bound
+FLASH_TOL = 1e-5                       # (c): _flash against attention_plain, max|diff| / max|ref|
+
+
+def rel_err(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+def model_twin(torch, serve, M, cfg, params, device, seed, forced=None):
+    """Prefill MODEL_PROMPT tokens, then MODEL_DECODE greedy steps on ``device``
+    (fed ``forced``'s tokens when given, so two devices see the same inputs)."""
+    batch = serve.make_batch(cfg, 2, MODEL_PROMPT, device, seed)
+    logits, caches, memory = M.prefill(params, batch, cfg, MODEL_PROMPT + MODEL_DECODE)
+    out = {"logits": [logits.cpu()], "caches": M.tree_map(lambda t: t.cpu().clone(), caches)}
+    toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    for i in range(MODEL_DECODE):
+        feed = toks[-1] if forced is None else forced[i].to(device)
+        logits, caches = M.decode_step(params, caches, feed, MODEL_PROMPT + i, cfg, memory=memory)
+        out["logits"].append(logits.cpu())
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    out["tokens"] = [t.cpu() for t in toks]
+    out["decoded_caches"] = M.tree_map(lambda t: t.cpu(), caches)
+    return out
+
+
+def tree_err(M, got, want):
+    """The largest max|diff| / max|ref| over a cache tree's float leaves; its int leaves must be equal."""
+    errs = []
+    for g, w in zip(M.tree_leaves(got), M.tree_leaves(want)):
+        check(g.shape == w.shape and g.dtype == w.dtype, f"cache leaf {tuple(g.shape)} {g.dtype} != "
+              f"{tuple(w.shape)} {w.dtype}")
+        if g.is_floating_point():
+            errs.append(rel_err(g, w))
+        else:
+            check(bool((g == w).all()), "a cache's positions differ between the card and the CPU")
+    return max(errs)
+
+
+def model_reduced(torch, serve, M, configs, seed):
+    """(a): each arch's reduced config on the card against the same
+    parameters on the CPU, at fp32 and at bf16 activations."""
+    out = {}
+    for arch in MODEL_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_reduced_config(arch), activation_dtype=dtype)
+            params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+            want = model_twin(torch, serve, M, cfg, params, torch.device("cpu"), seed)
+            got = model_twin(torch, serve, M, cfg, M.tree_map(lambda t: t.cuda(), params), torch.device("cuda"),
+                             seed, forced=want["tokens"])
+            tol = MODEL_TOL[dtype]
+            errs = {"prefill_logits": rel_err(got["logits"][0], want["logits"][0]),
+                    "decode_logits": max(rel_err(g, w) for g, w in zip(got["logits"][1:], want["logits"][1:])),
+                    "prefill_caches": tree_err(M, got["caches"], want["caches"]),
+                    "decoded_caches": tree_err(M, got["decoded_caches"], want["decoded_caches"])}
+            for what, err in errs.items():
+                check(err <= tol, f"{arch} {dtype}: {what} on the card {err:.3g} from the CPU's (> {tol})")
+            # greedy tokens: equal, except where the CPU's top-2 logits lie within the tolerance
+            ties = 0
+            for lg, g, w in zip(want["logits"], got["tokens"], want["tokens"]):
+                for b in torch.nonzero(g != w).flatten().tolist():
+                    top2 = torch.topk(lg[b], 2).values
+                    gap = float(top2[0] - top2[1]) / float(lg[b].abs().max())
+                    check(gap <= tol, f"{arch} {dtype}: greedy token {int(g[b])} != {int(w[b])} (top-2 gap {gap:.3g})")
+                    ties += 1
+            out[f"{arch}/{dtype}"] = {**errs, "near_tie_tokens": ties}
+    return out
+
+
+def model_full_serve(torch, serve, M, A, B, L, configs, seed):
+    """(b): gemma3-12b at full width and depth through ``launch/serve``'s
+    ``make_batch`` / ``generate``, the weights drawn on the card."""
+    free, total = torch.cuda.mem_get_info()
+    need = SERVE_PARAMS * 4 + SERVE_HEADROOM
+    check(free >= need, f"the card has {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; the full-width model "
+          f"needs {need / 1e9:.1f} GB (allocated by this process: {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+    cfg = configs.get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = M.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == SERVE_PARAMS, f"{SERVE_ARCH} has {n_params} parameters, not {SERVE_PARAMS}")
+    check(all(t.dtype == torch.float32 and t.is_cuda for t in leaves), "the weights are not fp32 on the card")
+    serve.generate(cfg, params, serve.make_batch(cfg, 1, 64, "cuda", seed), 2)   # warm-up: libraries, allocator
+    batch = serve.make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda", seed)
+    gen = serve.generate(cfg, params, batch, SERVE_NEW)
+    check(bool(torch.isfinite(gen.logits).all()), "the full-width logits are not finite")
+    check(gen.tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()),
+          "the full-width tokens are not ids below the vocab")
+    # the ring: a local layer holds the last `window` positions, a global one all of them
+    window, end = cfg.groups[0][0][0].window, SERVE_PROMPT + SERVE_NEW - 1
+    local, glob = (gen.caches[0][i]["pos"][0].tolist() for i in (0, 5))
+    check(SERVE_PROMPT > window and sorted(local) == list(range(end - window, end)),
+          f"the local layers' ring does not hold the last {window} positions")
+    check(glob == list(range(end)) + [-1], "the global layers' cache does not hold every position")
+    steps = SERVE_NEW - 1
+    rec = {
+        "arch": cfg.name, "layers": cfg.num_layers, "params": n_params, "param_bytes": n_params * 4,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW, "window": window,
+        "init_s": init_s, "prefill_ms": gen.prefill_s * 1e3, "decode_ms_per_token": gen.decode_s / steps * 1e3,
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / gen.prefill_s,
+        "decode_tokens_per_s": SERVE_BATCH * steps / gen.decode_s,
+        "tokens_per_s": SERVE_BATCH * SERVE_NEW / (gen.prefill_s + gen.decode_s),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "sample": gen.tokens[0].tolist(),
+    }
+    rec["split"] = model_serve_split(torch, M, A, B, L, cfg, params, gen, batch)
+    del gen
+    return rec, params
+
+
+def model_serve_split(torch, M, A, B, L, cfg, params, gen, batch):
+    """Where (b)'s time goes: CUDA events around one local and one global
+    layer at the prefill's shape, whole and by part (the four attention
+    projections, ``_flash``, the FFN), and one decode step by the host
+    clock beside the same step replayed as a CUDA graph (its device time
+    without the host's launches; "not measured" if the capture fails)."""
+    x = M._embed_tokens(params, cfg, batch["tokens"])
+    positions = torch.arange(SERVE_PROMPT, dtype=torch.int32, device="cuda")
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    pattern = cfg.groups[0][0]
+    out = {}
+    for i in (0, len(pattern) - 1):
+        blk, p = pattern[i], M.tree_map(lambda a: a[0], params["groups"][0][i])
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v, kpos = A.project_qkv(p["attn"], h, positions, cfg, blk)
+        o = q.reshape(SERVE_BATCH, SERVE_PROMPT, -1)
+        ffn_ms = event_ms(torch, lambda: L.swiglu(p["ffn"], h), 2)
+        out["local" if blk.window else "global"] = {
+            "layer": i,
+            "block_ms": event_ms(torch, lambda: B.block_seq(p, x, positions, cfg, blk, want_cache=True,
+                                                            cache_len=cache_len), 2),
+            "projections_ms": event_ms(torch, lambda: [L.dense(p["attn"][w], h) for w in ("wq", "wk", "wv")]
+                                       + [L.dense(p["attn"]["wo"], o)], 2),
+            "flash_ms": event_ms(torch, lambda: A._flash(q, k, v, positions, kpos, causal=True, window=blk.window,
+                                                         q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk), 2),
+            "ffn_ms": ffn_ms,
+            "ffn_tflops": 6 * SERVE_BATCH * SERVE_PROMPT * cfg.d_model * cfg.d_ff / ffn_ms / 1e9,
+        }
+    n_global = sum(1 for b in pattern if not b.window) * cfg.groups[0][1]
+    out["layers_ms"] = (out["local"]["block_ms"] * (cfg.num_layers - n_global)
+                        + out["global"]["block_ms"] * n_global)
+    tok, pos = torch.from_numpy(gen.tokens[:, -1]).cuda(), SERVE_PROMPT + SERVE_NEW - 1
+
+    def step():
+        return M.decode_step(params, gen.caches, tok, pos, cfg)[0]
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        out["decode_step_graph_ms"] = event_ms(torch, graph.replay, 5)
+        out["decode_host_share"] = 1 - out["decode_step_graph_ms"] / out["decode_step_ms"]
+        del graph
+    except RuntimeError as exc:   # a measurement, not a check: the eager step above is the path
+        out["decode_step_graph_ms"] = f"not measured ({exc})"[:300]
+    return out
+
+
+def model_consistency(torch, M, A, B, L, configs, params, seed):
+    """(c): the same weights at batch 1 with fp32 activations: prefill on
+    CONSIST_LEN - 1 tokens plus one decode step against forward_train's
+    logits at that position, and one local and one global layer's _flash
+    against attention_plain on that layer's own projections."""
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH), activation_dtype="float32")
+    s, dev = CONSIST_LEN, params["embed"]["table"].device
+    window = cfg.groups[0][0][0].window
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        _, logits = M.forward_train(params, {"tokens": tokens, "labels": tokens}, cfg)
+        want = logits[:, s - 1].clone()
+        del logits
+        ctx = {"tokens": tokens[:, : s - 1], "labels": tokens[:, : s - 1]}
+        _, caches, memory = M.prefill(params, ctx, cfg, cache_len=s)
+        local_pos = caches[0][0]["pos"][0]
+        check(s - 1 > window and sorted(local_pos.tolist()) == list(range(s - 1 - window, s - 1)),
+              f"the local layers' prefill cache does not hold the last {window} positions")
+        lg, caches = M.decode_step(params, caches, tokens[:, s - 1], s - 1, cfg, memory=memory)
+        decode_rel = rel_err(lg, want)
+        check(decode_rel < CONSIST_TOL, f"decode against forward_train at full width: rel {decode_rel:.3g}")
+        del caches
+        # the first pattern's blocks in order: position 0 is local, position 5 global
+        x = M._embed_tokens(params, cfg, tokens)
+        positions = torch.arange(s, dtype=torch.int32, device=dev)
+        flash = {}
+        pattern = cfg.groups[0][0]
+        for i, blk in enumerate(pattern):
+            p = M.tree_map(lambda a: a[0], params["groups"][0][i])
+            if i in (0, len(pattern) - 1):
+                h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+                q, k, v, kpos = A.project_qkv(p["attn"], h, positions, cfg, blk)
+                kw = dict(causal=True, window=blk.window)
+                got = A._flash(q, k, v, positions, kpos, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **kw)
+                ref = A.attention_plain(q, k, v, positions, kpos, **kw)
+                err = rel_err(got, ref)
+                check(err <= FLASH_TOL, f"_flash against attention_plain at layer {i} (window {blk.window}): {err:.3g}")
+                flash["local" if blk.window else "global"] = {"layer": i, "window": blk.window, "rel_err": err}
+            x, _ = B.block_seq(p, x, positions, cfg, blk)
+    return {"length": s, "decode_vs_forward_train_rel": decode_rel, "decode_tol": CONSIST_TOL,
+            "flash_vs_plain": flash, "flash_tol": FLASH_TOL}
+
+
+def phase_model_serve(torch, seed):
+    """Phase 11, the model serving path, with the launch counters from 0:
+    (a) the six attention-family archs' reduced configs on the card against
+    the port on the CPU with the same parameters (prefill logits and
+    caches, 8 teacher-forced decode steps' logits and caches, greedy
+    tokens); (b) gemma3-12b at full width and depth (fp32 weights drawn on
+    the card) serving SERVE_BATCH prompts of SERVE_PROMPT tokens and
+    SERVE_NEW new tokens through ``launch/serve``, with the card's name and
+    power limit beside its times; (c) the same weights at batch 1 with fp32
+    activations: decode against forward_train, and _flash against
+    attention_plain at a local and a global layer; (d) no kernel of
+    ``repro_torch.kernels`` launches: the models call none."""
+    from repro_torch import configs
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    mods = (distance_tile, dense_tile, flash_attention)
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    t_phase = time.perf_counter()
+    rec = {"phase": "model_serve", "card": smi_name_limit(), "tolerances": {
+        "card_vs_cpu": MODEL_TOL, "decode_vs_forward_train": CONSIST_TOL, "flash_vs_plain": FLASH_TOL}}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        rec["reduced"] = model_reduced(torch, serve, M, configs, seed)
+        rec["reduced_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["serve"], params = model_full_serve(torch, serve, M, A, B, L, configs, seed)
+        rec["serve"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["consistency"] = model_consistency(torch, M, A, B, L, configs, params, seed)
+        rec["consistency"]["wall_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    check(not any(launches.values()), f"the model path launched {({k: v for k, v in launches.items() if v})}")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return launches
+
+
 def ranges_on(events, names, device_type):
     """The profiler ranges named in ``names`` on one side: with CUDA activity
     the profiler mirrors each host range (CPU) on the device timeline
@@ -3303,6 +3597,8 @@ def main() -> int:
     parser.add_argument("--fused-rank", type=int, default=None,
                         help="run one rank of phase 9's gloo ring (the script starts these itself)")
     parser.add_argument("--fused-dir", type=Path, default=None, help="phase 9's exchange directory")
+    parser.add_argument("--model-serve-only", action="store_true",
+                        help="run phase 11 (the model serving path) alone, and print no kernels line")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3319,6 +3615,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.fused_rank is not None:
         return fused_rank_main(args.fused_rank, args.fused_dir)
+    if args.model_serve_only:
+        phase_model_serve(torch, args.seed)
+        return 0
 
     t_start = time.perf_counter()
     phase_device(torch, _build)
@@ -3422,6 +3721,14 @@ def main() -> int:
           f"the downstream phase launched {({k: v for k, v in downstream.items() if v})}: not K1 / K2 per pair "
           "and their fused steps alone")
 
+    # the model serving path: its own counters, from 0, after what the
+    # join's phases hold is freed (the full-width model's weights take 47 GB)
+    del syn_engine, cooc_engine, dense_engine, syn, cooc, syn_counts, cooc_counts, cooc_pairs, inputs
+    del syn_snap, cooc_snap, cooc_dense, syn_tiles, syn_lens, syn_pa, syn_pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_serve = phase_model_serve(torch, args.seed)
+
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
          "launches": launches[name], "max_abs_err": real[name]["max_abs_err"],
@@ -3457,6 +3764,8 @@ def main() -> int:
             "downstream_launches": downstream[name],
         })
     rows.append(attention_row(attn, serving, distributed, fused_ring, downstream))
+    for row in rows:
+        row["model_serve_launches"] = model_serve[row["name"]]   # phase 11 checks it is 0
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

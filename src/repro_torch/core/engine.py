@@ -436,6 +436,40 @@ class SelfJoinEngine:
         """Padded dimension count of the tile layout (n -> dim_block multiple)."""
         return self.snapshot.n_pad
 
+    # read-only aliases of the snapshot's fields, as the reference engine has
+
+    @property
+    def _pts(self) -> np.ndarray:
+        return self.snapshot.pts
+
+    @property
+    def _perm(self) -> Optional[np.ndarray]:
+        return self.snapshot.perm
+
+    @property
+    def _index_eps(self) -> Optional[float]:
+        return self.snapshot.index_eps
+
+    @property
+    def _tiles(self) -> torch.Tensor:
+        return self.snapshot.tiles
+
+    @property
+    def _tile_len(self) -> torch.Tensor:
+        return self.snapshot.tile_len
+
+    @property
+    def _tile_start(self) -> torch.Tensor:
+        return self.snapshot.tile_start
+
+    @property
+    def _point_order(self) -> torch.Tensor:
+        return self.snapshot.point_order
+
+    @property
+    def _num_dim_blocks(self) -> int:
+        return self.snapshot.num_dim_blocks
+
     def resolve_execution(
         self, eps: Optional[float] = None,
         snapshot: Optional[GridSnapshot] = None,
@@ -648,6 +682,11 @@ class SelfJoinEngine:
             cost_dense=dec.cost_dense,
             num_candidates=num_candidates,
         )
+
+    def packed_tile_table(self, num_tiles: int):
+        """Host tile table padded to ``num_tiles`` rows (delegates to the
+        snapshot; kept for callers that hold only the engine)."""
+        return self.snapshot.packed_tile_table(num_tiles)
 
     # -- queries ----------------------------------------------------------
 

@@ -1,0 +1,281 @@
+"""Attention: GQA/MHA/MQA, local (sliding-window) and cross attention.
+
+PyTorch port of ``repro.models.attention`` (MLA is ``models/mla.py`` in
+the reference, not ported yet).  The training / prefill path is the
+reference's flash formulation in torch ops: an online softmax over key
+chunks inside a loop over query chunks, so the (Sq, Sk) score matrix is
+never materialized.  ``attention_plain`` is the materialized softmax with
+the same masks, the yardstick the tests and ``chip_smoke.py`` hold
+``_flash`` to; nothing on the model path calls it.  The decode path scores
+one query against the KV cache; local attention uses a ring-buffer cache
+of window size.  No kernel of ``repro_torch.kernels`` is called here, as
+``repro.models`` calls none.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+
+NEG_INF = -1.0e30
+
+
+class AttnDims(NamedTuple):
+    heads: int
+    kv_heads: int
+    head_dim: int
+
+
+# ------------------------------------------------------------- init --------
+
+
+def attn_init(init: L.Init, d_model, dims: AttnDims, dtype, *, qkv_bias=False, qk_norm=False):
+    h, kvh, dh = dims
+    p = {
+        "wq": L.dense_init(init, d_model, h * dh, dtype, bias=qkv_bias),
+        "wk": L.dense_init(init, d_model, kvh * dh, dtype, bias=qkv_bias),
+        "wv": L.dense_init(init, d_model, kvh * dh, dtype, bias=qkv_bias),
+        "wo": L.dense_init(init, h * dh, d_model, dtype),
+    }
+    if qk_norm:
+        p["qnorm"] = L.rmsnorm_init(init, dh, dtype)
+        p["knorm"] = L.rmsnorm_init(init, dh, dtype)
+    return p
+
+
+# ------------------------------------------------------ flash attention ----
+
+
+def _mask(qpos, kpos, causal: bool, window: int):
+    """(Sq, Sk) bool: which keys each query may see."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    return mask
+
+
+def _pad_seq(t, pad):
+    """Pad axis 1 (the sequence) of ``t`` by ``pad`` rows of zeros."""
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], dim=1)
+
+
+def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
+           q_chunk: int, k_chunk: int, remat_kv: bool = True,
+           scale: Optional[float] = None):
+    """Online-softmax attention.
+
+    q: (B, Sq, KV, G, dh)   k, v: (B, Sk, KV, dh)
+    qpos: (Sq,) kpos: (Sk,) absolute positions (mask built on the fly).
+    Returns (B, Sq, KV, G, dv) in q.dtype.  Padded queries sit at position
+    -10**9 and padded keys at +10**9, as in the reference.  ``remat_kv`` is
+    the reference's backward switch; there is no backward here.
+    """
+    del remat_kv
+    b, sq, kvh, g, dh = q.shape
+    sk = k.shape[1]
+    dv = v.shape[-1]            # may differ from dh (MLA)
+    if scale is None:
+        scale = 1.0 / np.sqrt(dh)
+    scale = float(scale)
+    qc = min(q_chunk, sq)
+    kc = min(k_chunk, sk)
+    pad_q = (-sq) % qc
+    pad_k = (-sk) % kc
+    qp = _pad_seq(q, pad_q)
+    kp = _pad_seq(k, pad_k)
+    vp = _pad_seq(v, pad_k)
+    qpos_p = torch.cat([qpos, qpos.new_full((pad_q,), -(10**9))])
+    kpos_p = torch.cat([kpos, kpos.new_full((pad_k,), 10**9)])
+    nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
+    outs = []
+    for qi in range(nq):
+        qb = qp[:, qi * qc:(qi + 1) * qc].float()         # (B, qc, KV, G, dh)
+        qposb = qpos_p[qi * qc:(qi + 1) * qc]
+        m = torch.full((b, kvh, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kvh, g, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kvh, g, qc, dv), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            kb = kp[:, ki * kc:(ki + 1) * kc].float()     # (B, kc, KV, dh)
+            vb = vp[:, ki * kc:(ki + 1) * kc].float()
+            kposb = kpos_p[ki * kc:(ki + 1) * kc]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale   # (B, KV, G, qc, kc)
+            s = s.masked_fill(~_mask(qposb, kposb, causal, window), NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)
+        outs.append(out.permute(0, 3, 1, 2, 4))           # (B, qc, KV, G, dv)
+    out = torch.cat(outs, dim=1)
+    return out[:, :sq].to(q.dtype)
+
+
+def attention_plain(q, k, v, qpos, kpos, *, causal: bool, window: int,
+                    scale: Optional[float] = None):
+    """``_flash``'s function with the (Sq, Sk) scores materialized.
+
+    The same masks, the same -1e30 fill (a query that sees no key averages
+    every value, as ``_flash`` does) and fp32 scores; a yardstick only.
+    """
+    dh = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / np.sqrt(dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * float(scale)
+    s = s.masked_fill(~_mask(qpos, kpos, causal, window), NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.to(q.dtype)
+
+
+# ------------------------------------------------- train/prefill forward ---
+
+
+def project_qkv(p, x, positions, cfg, block, *, memory=None, memory_pos=None):
+    """The projections ``attention`` feeds ``_flash``: q (B, S, KV, G, dh),
+    k, v (B, Sm, KV, dh), after qk-norm and (self-attention only) RoPE, and
+    the keys' positions."""
+    dims = AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    h, kvh, dh = dims
+    g = h // kvh
+    b, s, _ = x.shape
+
+    q = L.dense(p["wq"], x).reshape(b, s, kvh, g, dh)
+    src = memory if memory is not None else x
+    sm = src.shape[1]
+    k = L.dense(p["wk"], src).reshape(b, sm, kvh, dh)
+    v = L.dense(p["wv"], src).reshape(b, sm, kvh, dh)
+
+    if "qnorm" in p:
+        q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["knorm"], k, cfg.norm_eps)
+
+    if memory is None:
+        cos, sin = L.rope_cos_sin(positions, dh, block.rope_theta)
+        q = apply_rope_grouped(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        kpos = positions
+    else:
+        kpos = (
+            memory_pos
+            if memory_pos is not None
+            else torch.arange(sm, dtype=torch.int32, device=x.device)
+        )
+    return q, k, v, kpos
+
+
+def attention(p, x, positions, cfg, block, *, memory=None, memory_pos=None,
+              causal=True, return_kv=False):
+    """Self- or cross-attention over a full sequence.
+
+    x: (B, S, D); positions: (S,) int.
+    memory: (B, Sm, D_mem) for cross-attention (already projected to d_model
+    by the caller if needed).
+    Returns (B, S, D), and the projected (k, v) when ``return_kv`` (prefill
+    cache fill).
+    """
+    b, s, _ = x.shape
+    q, k, v, kpos = project_qkv(p, x, positions, cfg, block, memory=memory, memory_pos=memory_pos)
+    cross = memory is not None
+    out = _flash(
+        q, k, v, positions, kpos,
+        causal=causal and not cross, window=block.window if not cross else 0,
+        q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, remat_kv=cfg.flash_remat,
+    )
+    y = L.dense(p["wo"], out.reshape(b, s, cfg.num_heads * cfg.head_dim_))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def apply_rope_grouped(q, cos, sin):
+    """RoPE on (B, S, KV, G, dh)."""
+    b, s, kvh, g, dh = q.shape
+    return L.apply_rope(q.reshape(b, s, kvh * g, dh), cos, sin).reshape(q.shape)
+
+
+# --------------------------------------------------------------- decode ----
+
+
+def init_cache(cfg, block, batch: int, cache_len: int, dtype, device="cuda"):
+    """KV cache for one attention block.
+
+    Local attention keeps a ring buffer of ``window`` slots (constant-memory
+    long-context decode); global attention keeps ``cache_len`` slots.
+    ``pos`` records the absolute position stored in each slot (-1 = empty).
+    """
+    dims = AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    slots = min(block.window, cache_len) if block.window > 0 else cache_len
+    shape = (batch, slots, dims.kv_heads, dims.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((slots,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(p, x, cache, pos, cfg, block, *, memory=None):
+    """One-token decode. x: (B, 1, D); pos: absolute position (int).
+
+    Returns (out (B, 1, D), cache).  Unlike the reference, which returns a
+    new cache, the slot ``pos % slots`` of ``cache`` is written in place and
+    the same dict is returned.
+    """
+    dims = AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    h, kvh, dh = dims
+    g = h // kvh
+    b = x.shape[0]
+
+    q = L.dense(p["wq"], x).reshape(b, 1, kvh, g, dh)
+    if memory is not None:  # cross-attn: static memory, no cache update
+        sm = memory.shape[1]
+        k = L.dense(p["wk"], memory).reshape(b, sm, kvh, dh)
+        v = L.dense(p["wv"], memory).reshape(b, sm, kvh, dh)
+        if "qnorm" in p:
+            q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
+            k = L.rmsnorm(p["knorm"], k, cfg.norm_eps)
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())[:, :, :, 0] / float(np.sqrt(dh))
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
+        out = out.reshape(b, 1, h * dh).to(x.dtype)
+        return L.dense(p["wo"], out), cache
+
+    k1 = L.dense(p["wk"], x).reshape(b, 1, kvh, dh)
+    v1 = L.dense(p["wv"], x).reshape(b, 1, kvh, dh)
+    if "qnorm" in p:
+        q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k1 = L.rmsnorm(p["knorm"], k1, cfg.norm_eps)
+
+    pos = int(pos)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    cos, sin = L.rope_cos_sin(posv, dh, block.rope_theta)
+    q = apply_rope_grouped(q, cos, sin)
+    k1 = L.apply_rope(k1, cos, sin)
+
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = pos % ck.shape[1]  # ring buffer; identity when slots == cache_len > pos
+    ck[:, slot] = k1[:, 0].to(ck.dtype)
+    cv[:, slot] = v1[:, 0].to(cv.dtype)
+    cpos[slot].fill_(pos)   # a fill, not a copy from a host scalar (which would wait for the card)
+
+    s = torch.einsum(
+        "bqkgd,bskd->bkgqs", q.float(), ck.to(q.dtype).float()
+    )[:, :, :, 0] / float(np.sqrt(dh))                 # (B, KV, G, slots)
+    valid = (cpos >= 0) & (cpos <= pos)
+    if block.window > 0:
+        valid &= cpos > (pos - block.window)
+    s = s.masked_fill(~valid[None, None, None], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum(
+        "bkgs,bskd->bkgd", w, cv.to(q.dtype).float()
+    ).reshape(b, 1, h * dh).to(x.dtype)
+    return L.dense(p["wo"], out), cache

@@ -1,0 +1,229 @@
+"""Elementary layers, PyTorch port of ``repro.models.layers``.
+
+Functional style: ``*_init`` returns a parameter dict, apply functions are
+pure.  Numerics policy (DESIGN.md #6), as in the reference: parameters in
+``cfg.param_dtype``, activations in ``cfg.activation_dtype``, norms and
+softmax in fp32, and every product that the reference takes with
+``preferred_element_type=float32`` is taken here on fp32 copies of both
+inputs (a bf16 activation is upcast, an fp32 weight is never downcast).
+fp32 products stay at torch's default full precision: no TF32.
+
+Parameters are drawn by an ``Init`` from an explicit ``torch.Generator``:
+torch cannot replay ``jax.random``, so the port draws the same
+distributions, not the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def dt(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class Init:
+    """Draws parameter leaves on ``device`` from ``generator``.
+
+    ``lead`` is prepended to every leaf's shape: ``stacked(repeat)`` gives the
+    layer groups' ``(repeat, ...)`` leaves (the reference ``vmap``s its init
+    over ``repeat`` keys).  On the ``meta`` device nothing is drawn or
+    allocated (``abstract_params``).
+    """
+
+    def __init__(self, generator: Optional[torch.Generator], device: torch.device,
+                 lead: Tuple[int, ...] = ()):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.lead = tuple(lead)
+
+    def stacked(self, repeat: int) -> "Init":
+        return Init(self.generator, self.device, (repeat,) + self.lead)
+
+    def _empty(self, shape, dtype):
+        return torch.empty(self.lead + tuple(shape), dtype=dtype, device=self.device)
+
+    def normal(self, shape, std: float, dtype) -> torch.Tensor:
+        """fp32 normal draws times ``std``, cast to ``dtype``."""
+        w = self._empty(shape, torch.float32)
+        if self.device.type != "meta":
+            w.normal_(0.0, float(std), generator=self.generator)
+        return w.to(dtype)
+
+    def ones(self, shape, dtype) -> torch.Tensor:
+        t = self._empty(shape, dtype)
+        return t if self.device.type == "meta" else t.fill_(1)
+
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        t = self._empty(shape, dtype)
+        return t if self.device.type == "meta" else t.zero_()
+
+
+def dense_init(init: Init, d_in: int, d_out: int, dtype, bias: bool = False,
+               scale: Optional[float] = None):
+    std = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    p = {"w": init.normal((d_in, d_out), std, dtype)}
+    if bias:
+        p["b"] = init.zeros((d_out,), dtype)
+    return p
+
+
+def dense(p, x, out_dtype=None):
+    out_dtype = out_dtype or x.dtype
+    y = torch.matmul(x.float(), p["w"].float())
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(out_dtype)
+
+
+def rmsnorm_init(init: Init, d: int, dtype):
+    return {"scale": init.ones((d,), dtype)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(init: Init, d: int, dtype):
+    return {"scale": init.ones((d,), dtype), "bias": init.zeros((d,), dtype)}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def embed_init(init: Init, vocab: int, d: int, dtype):
+    return {"table": init.normal((vocab, d), 0.02, dtype)}
+
+
+def embed(p, ids, out_dtype):
+    return p["table"][ids].to(out_dtype)
+
+
+def unembed(p_embed, x):
+    """Tied readout: x @ table^T, fp32 logits."""
+    return torch.matmul(x.float(), p_embed["table"].float().T)
+
+
+# ---------------------------------------------------------------- RoPE -----
+
+
+def rope_cos_sin(positions, dim: int, theta: float):
+    """positions (...,) int -> (..., dim/2) cos & sin, fp32."""
+    half = dim // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (float(theta) ** (idx / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, n_heads, dh); cos/sin (..., S, dh/2) -- NeoX half split."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].float()
+    s = sin[..., None, :].float()
+    x1f, x2f = x1.float(), x2.float()
+    out = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLPs -----
+
+
+def swiglu_init(init: Init, d: int, f: int, dtype):
+    return {
+        "wg": dense_init(init, d, f, dtype),
+        "wi": dense_init(init, d, f, dtype),
+        "wo": dense_init(init, f, d, dtype),
+    }
+
+
+def swiglu(p, x):
+    g = dense(p["wg"], x, torch.float32)
+    u = dense(p["wi"], x, torch.float32)
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    return dense(p["wo"], h)
+
+
+def gelu_mlp_init(init: Init, d: int, f: int, dtype):
+    return {
+        "wi": dense_init(init, d, f, dtype, bias=True),
+        "wo": dense_init(init, f, d, dtype, bias=True),
+    }
+
+
+def gelu_mlp(p, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    h = torch.nn.functional.gelu(dense(p["wi"], x, torch.float32), approximate="tanh")
+    return dense(p["wo"], h.to(x.dtype))
+
+
+def softcap(x, cap: float):
+    if cap and cap > 0:
+        return torch.tanh(x / cap) * cap
+    return x
+
+
+def blocked_cross_entropy(
+    x, labels, *, table=None, w=None, bias=None, chunk: int = 8192,
+    logit_softcap: float = 0.0,
+):
+    """Streaming CE loss over vocab chunks -- logits are NEVER materialized.
+
+    Computes max / logsumexp / label logit chunk by chunk (online softmax
+    over the vocab axis), so peak memory is (B, S, chunk).  A vocab that is
+    not a multiple of ``chunk`` gets an overlapping last chunk whose
+    already-seen columns are masked (first-seen masking).  Forward only.
+
+    x: (B, S, D); labels: (B, S) int (negative = masked out).
+    table: (V, D) tied embedding, or w: (D, V) untied unembed matrix.
+    Returns mean loss over unmasked positions (fp32 scalar).
+    """
+    v = table.shape[0] if table is not None else w.shape[1]
+    chunk = min(chunk, v)
+    nc = -(-v // chunk)
+    starts = [i * chunk for i in range(nc)]
+    valid_from = list(starts)
+    if starts[-1] + chunk > v:       # overlap the last chunk; mask re-seen cols
+        starts[-1] = v - chunk
+
+    b, s, _ = x.shape
+    dev = x.device
+    # masked (negative) labels pick index 0 -- the -inf never reaches the
+    # loss because the mask zeroes those positions (avoid 0 * inf = NaN)
+    lab = torch.where(labels >= 0, labels, torch.zeros_like(labels)).long()
+    xf = x.float()
+    m = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
+    z = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    picked = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
+    for start, vfrom in zip(starts, valid_from):
+        if table is not None:
+            lc = torch.matmul(xf, table[start:start + chunk].float().T)
+        else:
+            lc = torch.matmul(xf, w[:, start:start + chunk].float())
+        if bias is not None:
+            lc = lc + bias[start:start + chunk].float()
+        lc = softcap(lc, logit_softcap)
+        gcol = start + torch.arange(chunk, device=dev)
+        lc = lc.masked_fill(~(gcol >= vfrom)[None, None, :], -torch.inf)
+        m_new = torch.maximum(m, lc.amax(dim=-1))
+        z = z * torch.exp(m - m_new) + torch.exp(lc - m_new[..., None]).sum(dim=-1)
+        m = m_new
+        local = lab - start
+        in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
+        safe = local.clamp(0, chunk - 1)
+        got = torch.gather(lc, -1, safe[..., None])[..., 0]
+        picked = torch.where(in_chunk & (got > -torch.inf), got, picked)
+    ll = picked - m - torch.log(torch.clamp_min(z, 1e-37))
+    mask = (labels >= 0).float()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -27,7 +27,9 @@ blocks launch only the fused steps, and ``ring_self_join_counts`` on a
 one-rank NCCL group equals the brute force; the host-loop join and dedup
 on the card equal the same calls on the CPU, launching K1 / K2 per pair per
 ``ops`` chunk (dedup: the fused pairs step), and the profiler bridge puts
-one range around each count chunk's fused kernel.  Flash attention compares within 2e-5 in f32 and
+one range around each count chunk's fused kernel; reduced gemma3 on the
+card equals the same parameters on the CPU (``chip_smoke.MODEL_TOL``) and
+launches no kernel.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -689,3 +691,34 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="must divide chunks"):
         flash_attention.flash_attention(q, k, v, q_chunk=48)
     assert flash_attention.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_model_on_the_card_equals_the_cpu(cuda, dtype):
+    """Reduced gemma3 (window 8, so the ring wraps in prefill and decode) on
+    the card against the same parameters on the CPU: prefill logits and
+    caches, 8 teacher-forced decode steps, greedy tokens (chip_smoke phase
+    11 (a), ``MODEL_TOL``); no kernel of ``repro_torch.kernels`` launches."""
+    from chip_smoke import MODEL_TOL, model_twin, rel_err, tree_err
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_reduced_config("gemma3_12b"), activation_dtype=dtype)
+    params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES, **flash_attention.LAUNCHES}
+    with torch.no_grad():
+        want = model_twin(torch, serve, M, cfg, params, torch.device("cpu"), 3)
+        got = model_twin(torch, serve, M, cfg, M.tree_map(lambda t: t.to(cuda), params), cuda, 3,
+                         forced=want["tokens"])
+    assert before == {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES, **flash_attention.LAUNCHES}
+    tol = MODEL_TOL[dtype]
+    for g, w in zip(got["logits"], want["logits"]):
+        assert rel_err(g, w) <= tol
+    assert tree_err(M, got["caches"], want["caches"]) <= tol
+    assert tree_err(M, got["decoded_caches"], want["decoded_caches"]) <= tol
+    for lg, g, w in zip(want["logits"], got["tokens"], want["tokens"]):
+        for b in torch.nonzero(g != w).flatten().tolist():   # only on a near-tie of the CPU's top 2
+            top2 = torch.topk(lg[b], 2).values
+            assert float(top2[0] - top2[1]) <= tol * float(lg[b].abs().max())
+    assert sorted(got["decoded_caches"][0][0]["pos"][0].tolist()) == list(range(12, 20))

@@ -185,6 +185,30 @@ def test_snapshot_carried_from_reference_gives_same_answers(dataset_case):
         port.swap_snapshot(snapshot_from_numpy(fields, SelfJoinConfig(**_kw(eps, k=2)), device="cpu"))
 
 
+ALIASES = ("_pts", "_perm", "_index_eps", "_tiles", "_tile_len", "_tile_start", "_point_order",
+           "_num_dim_blocks")
+
+
+@pytest.mark.parametrize("mode", ["indexed", "dense"])
+def test_engine_aliases_and_packed_tile_table_match_reference(dataset_case, mode):
+    """The engine's read-only snapshot aliases and ``packed_tile_table``
+    (padded past the real tiles) are ``==`` the reference's."""
+    _, d, eps = dataset_case
+    ref, port = _engines(d, _kw(eps, execution=mode))
+    for name in ALIASES:
+        want, got = getattr(ref, name), getattr(port, name)
+        if want is None or isinstance(want, (int, float)):
+            assert got == want, name
+        else:
+            got = got.numpy() if isinstance(got, torch.Tensor) else got
+            assert got.dtype == np.asarray(want).dtype, name
+            np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)
+    rows = (port.plan.num_tiles if port.plan is not None else 0) + 3
+    for want, got in zip(ref.packed_tile_table(rows), port.packed_tile_table(rows)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works here")
