@@ -156,12 +156,12 @@ Phases, each printing one JSON line:
    and none without the bridge;
 11. model_serve -- the model serving path (``repro_torch.models``,
    ``launch/serve``), after phase 10 and after the join's engines and
-   arrays are freed, with its own launch counters: (a) the six
-   attention-family archs' reduced configs on the card against the port on
-   the CPU with the same parameters, at fp32 (within 1e-4) and bf16
-   activations (within 2e-2): prefill logits and caches, 8 teacher-forced
-   decode steps' logits and caches, greedy tokens (equal but on a near-tie
-   of the CPU's top 2); (b) gemma3-12b at full width and depth
+   arrays are freed, with its own launch counters: (a) all ten archs'
+   reduced configs on the card against the port on the CPU with the same
+   parameters, at fp32 (within 1e-4) and bf16 activations (within 2e-2):
+   prefill logits and caches or recurrent states, 8 teacher-forced decode
+   steps' logits and caches or states, greedy tokens (equal but on a
+   near-tie of the CPU's top 2); (b) gemma3-12b at full width and depth
    (11,765,419,776 fp32 parameters drawn on the card from a
    ``torch.Generator``) serving 4 prompts of 1536 tokens and 16 new tokens,
    so the local layers' ring buffer (window 1024) wraps in prefill and in
@@ -171,8 +171,19 @@ Phases, each printing one JSON line:
    replayed as a CUDA graph); (c) the same weights at batch 1 with fp32
    activations: prefill on 1039 tokens plus one decode step against
    ``forward_train`` (rel < 5e-3), ``_flash`` against ``attention_plain``
-   at a local and a global layer (1e-5); (d) no kernel launches: the
-   models call none.  ``--model-serve-only`` runs this phase alone.
+   at a local and a global layer (1e-5); (e) then, each freed before the
+   next, recurrentgemma-2b (26 layers, 2,894,481,920 fp32 parameters; 4
+   prompts of 2304 tokens, so its local layers' 2048-slot ring wraps),
+   xlstm-125m (12 layers; 4 x 1000 tokens, the last mLSTM chunk partial),
+   deepseek-v2-236b at full width cut to its dense first layer and 2 MoE
+   layers (9,330,795,520 bf16 parameters; 4 x 512, prefill also absorbed)
+   and arctic-480b at full width cut to 1 of 35 layers (14,069,945,344 bf16
+   parameters; 4 x 512), each with 16 new tokens: prefill ms, decode ms per
+   token, tokens/s, peak device memory, finite logits, ids below the vocab,
+   the MoE's dropped assignments at the default capacity, and decode
+   against ``forward_train`` at batch 1 with fp32 activations (rel < 5e-3,
+   the MoE at capacity factor 8); (d) no kernel launches: the models call
+   none.  ``--model-serve-only`` runs this phase alone.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -3106,8 +3117,9 @@ def phase_downstream(torch, np, cooc, cooc_engine, cooc_counts, cooc_pairs, prof
 
 # -- phase 11: the model serving path -----------------------------------------
 
-MODEL_ARCHS = ("gemma3_12b", "phi3_mini_3p8b", "qwen3_32b", "qwen2p5_32b", "seamless_m4t_medium",
-               "llama3p2_vision_11b")   # the attention-family archs the port has (ROADMAP item 13a)
+MODEL_ARCHS = ("gemma3_12b", "phi3_mini_3p8b", "qwen3_32b", "qwen2p5_32b", "recurrentgemma_2b", "arctic_480b",
+               "deepseek_v2_236b", "seamless_m4t_medium", "llama3p2_vision_11b",
+               "xlstm_125m")   # (a): all ten archs of repro_torch.configs
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # card against the CPU, max|diff| / max|ref|
 MODEL_PROMPT, MODEL_DECODE = 12, 8     # (a): reduced gemma3's window is 8, so its ring wraps
 SERVE_ARCH = "gemma3_12b"              # (b): full width and depth, 48 layers, fp32 params
@@ -3117,6 +3129,20 @@ SERVE_HEADROOM = 8e9                   # device bytes (b) needs beyond the weigh
 CONSIST_LEN = 1040                     # (c): prefill on 1039 tokens wraps the local layers' ring
 CONSIST_TOL = 5e-3                     # tests/test_archs_smoke.py's own decode / train bound
 FLASH_TOL = 1e-5                       # (c): _flash against attention_plain, max|diff| / max|ref|
+# (e): the archs of MLA, MoE and the recurrent mixers at full width, one after another, each
+# freed before the next.  params: the reference's count_params_analytic at the
+# config served (deepseek-v2 and arctic cut in depth: their 236B / 477B
+# parameters do not fit one card); repeats: each layer group's repeat after the
+# cut (None: full depth); prompt: tokens per prompt; consist: (d)'s length
+FULL_ARCHS = {
+    "recurrentgemma_2b": {"params": 2_894_481_920, "repeats": None, "prompt": 2304, "consist": 2100},
+    "xlstm_125m": {"params": 102_425_160, "repeats": None, "prompt": 1000, "consist": 1000},
+    "deepseek_v2_236b": {"params": 9_330_795_520, "repeats": (1, 2), "prompt": 512, "consist": 512},
+    "arctic_480b": {"params": 14_069_945_344, "repeats": (1,), "prompt": 512, "consist": 512},
+}
+FULL_BATCH, FULL_NEW = 4, 16
+FULL_HEADROOM = 12e9                   # device bytes (e) needs beyond an arch's weights
+CONSIST_CAPACITY = 8.0                 # (e)'s MoE capacity factor against forward_train (test_archs_smoke.py's)
 
 
 def rel_err(got, want):
@@ -3287,28 +3313,53 @@ def model_serve_split(torch, M, A, B, L, cfg, params, gen, batch):
     return out
 
 
+def decode_vs_train(torch, M, MOE, cfg, params, s, seed):
+    """Batch 1 with fp32 activations (an MoE at CONSIST_CAPACITY, its drops
+    counted): prefill on s - 1 tokens plus one decode step against
+    forward_train's logits at s - 1.  Returns (record, tokens, the caches
+    after the step)."""
+    overrides = {"activation_dtype": "float32"}
+    if cfg.moe is not None:
+        overrides["moe"] = dataclasses.replace(cfg.moe, capacity_factor=CONSIST_CAPACITY)
+    cfg = dataclasses.replace(cfg, **overrides)
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev, dtype=torch.int32)
+    out = {"length": s}
+
+    def train():
+        return M.forward_train(params, {"tokens": tokens, "labels": tokens}, cfg)[1]
+
+    if cfg.moe is None:
+        logits = train()
+    else:
+        logits, out["forward_train_dropped"], _ = moe_drops(MOE, train)
+        out["capacity_factor"] = CONSIST_CAPACITY
+    want = logits[:, s - 1].clone()
+    del logits
+    ctx = {"tokens": tokens[:, : s - 1], "labels": tokens[:, : s - 1]}
+    _, caches, memory = M.prefill(params, ctx, cfg, cache_len=s)
+    lg, caches = M.decode_step(params, caches, tokens[:, s - 1], s - 1, cfg, memory=memory)
+    rel = rel_err(lg, want)
+    check(rel < CONSIST_TOL, f"{cfg.name}: decode against forward_train at full width: rel {rel:.3g}")
+    out.update(decode_vs_forward_train_rel=rel, decode_tol=CONSIST_TOL)
+    return out, tokens, caches
+
+
 def model_consistency(torch, M, A, B, L, configs, params, seed):
     """(c): the same weights at batch 1 with fp32 activations: prefill on
     CONSIST_LEN - 1 tokens plus one decode step against forward_train's
-    logits at that position, and one local and one global layer's _flash
-    against attention_plain on that layer's own projections."""
+    logits at that position (``decode_vs_train``), and one local and one
+    global layer's _flash against attention_plain on that layer's own
+    projections."""
     cfg = dataclasses.replace(configs.get_config(SERVE_ARCH), activation_dtype="float32")
     s, dev = CONSIST_LEN, params["embed"]["table"].device
     window = cfg.groups[0][0][0].window
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev, dtype=torch.int32)
     with torch.no_grad():
-        _, logits = M.forward_train(params, {"tokens": tokens, "labels": tokens}, cfg)
-        want = logits[:, s - 1].clone()
-        del logits
-        ctx = {"tokens": tokens[:, : s - 1], "labels": tokens[:, : s - 1]}
-        _, caches, memory = M.prefill(params, ctx, cfg, cache_len=s)
+        out, tokens, caches = decode_vs_train(torch, M, None, cfg, params, s, seed)
         local_pos = caches[0][0]["pos"][0]
-        check(s - 1 > window and sorted(local_pos.tolist()) == list(range(s - 1 - window, s - 1)),
-              f"the local layers' prefill cache does not hold the last {window} positions")
-        lg, caches = M.decode_step(params, caches, tokens[:, s - 1], s - 1, cfg, memory=memory)
-        decode_rel = rel_err(lg, want)
-        check(decode_rel < CONSIST_TOL, f"decode against forward_train at full width: rel {decode_rel:.3g}")
+        check(s > window and sorted(local_pos.tolist()) == list(range(s - window, s)),
+              f"the local layers' cache does not hold the last {window} positions")
         del caches
         # the first pattern's blocks in order: position 0 is local, position 5 global
         x = M._embed_tokens(params, cfg, tokens)
@@ -3327,22 +3378,143 @@ def model_consistency(torch, M, A, B, L, configs, params, seed):
                 check(err <= FLASH_TOL, f"_flash against attention_plain at layer {i} (window {blk.window}): {err:.3g}")
                 flash["local" if blk.window else "global"] = {"layer": i, "window": blk.window, "rel_err": err}
             x, _ = B.block_seq(p, x, positions, cfg, blk)
-    return {"length": s, "decode_vs_forward_train_rel": decode_rel, "decode_tol": CONSIST_TOL,
-            "flash_vs_plain": flash, "flash_tol": FLASH_TOL}
+    return {**out, "flash_vs_plain": flash, "flash_tol": FLASH_TOL}
+
+
+def cut_depth(cfg, repeats):
+    """``cfg`` with its layer groups' repeats set to ``repeats`` (None: as is)."""
+    if repeats is None:
+        return cfg
+    return dataclasses.replace(cfg, groups=tuple((pattern, r) for (pattern, _), r in zip(cfg.groups, repeats)))
+
+
+def moe_drops(MOE, run):
+    """``run()`` with every ``moe_apply`` call counting its dropped
+    assignments first; returns (run's result, dropped, assignments)."""
+    real, counts = MOE.moe_apply, []
+
+    def counting(p, x, cfg):
+        counts.append((MOE.dropped_assignments(p, x, cfg), x.shape[0] * x.shape[1] * cfg.moe.top_k))
+        return real(p, x, cfg)
+
+    MOE.moe_apply = counting
+    try:
+        out = run()
+    finally:
+        MOE.moe_apply = real
+    return out, sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+def model_full_arch(torch, serve, M, MOE, configs, arch, seed):
+    """(e): one arch of FULL_ARCHS at full width (its depth cut where
+    FULL_ARCHS says), weights drawn on the card, serving FULL_BATCH prompts
+    through ``launch/serve``; then the same weights at batch 1 with fp32
+    activations, decode against forward_train."""
+    spec = FULL_ARCHS[arch]
+    full = configs.get_config(arch)
+    cfg = cut_depth(full, spec["repeats"])
+    elem = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    free, total = torch.cuda.mem_get_info()
+    need = spec["params"] * elem + FULL_HEADROOM
+    check(free >= need, f"{arch}: the card has {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; it needs "
+          f"{need / 1e9:.1f} GB (allocated by this process: {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = M.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == spec["params"], f"{arch} has {n_params} parameters, not {spec['params']}")
+    check(n_params == M.count_params_analytic(cfg), f"{arch}: the tree and count_params_analytic differ")
+    check(all(t.is_cuda for t in leaves), f"{arch}: a weight is not on the card")
+    prompt, cache_len = spec["prompt"], spec["prompt"] + FULL_NEW
+    serve.generate(cfg, params, serve.make_batch(cfg, 1, 64, "cuda", seed), 2)   # warm-up: libraries, allocator
+    batch = serve.make_batch(cfg, FULL_BATCH, prompt, "cuda", seed)
+    gen = serve.generate(cfg, params, batch, FULL_NEW)
+    check(bool(torch.isfinite(gen.logits).all()), f"{arch}: the full-width logits are not finite")
+    check(gen.tokens.shape == (FULL_BATCH, FULL_NEW) and bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()),
+          f"{arch}: the full-width tokens are not ids below the vocab")
+    steps = FULL_NEW - 1
+    rec = {
+        "arch": cfg.name, "layers": cfg.num_layers, "full_layers": full.num_layers,
+        "depth_cut": None if spec["repeats"] is None else
+        f"{cfg.num_layers} of {full.num_layers} layers: the full model's "
+        f"{M.count_params_analytic(full) / 1e9:.0f}B parameters do not fit one card",
+        "params": n_params, "param_dtype": cfg.param_dtype, "param_bytes": n_params * elem,
+        "activation_dtype": cfg.activation_dtype, "batch": FULL_BATCH, "prompt": prompt, "new_tokens": FULL_NEW,
+        "init_s": init_s, "prefill_ms": gen.prefill_s * 1e3, "decode_ms_per_token": gen.decode_s / steps * 1e3,
+        "prefill_tokens_per_s": FULL_BATCH * prompt / gen.prefill_s,
+        "decode_tokens_per_s": FULL_BATCH * steps / gen.decode_s,
+        "tokens_per_s": FULL_BATCH * FULL_NEW / (gen.prefill_s + gen.decode_s),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "sample": gen.tokens[0].tolist(),
+    }
+    attn = [(gi, i, blk.window) for gi, (pattern, _) in enumerate(cfg.groups)
+            for i, blk in enumerate(pattern) if blk.kind == "attn" and blk.window]
+    if attn:   # recurrentgemma's local MQA layers: the ring holds the last `window` positions
+        gi, i, window = attn[0]
+        end = prompt + FULL_NEW - 1
+        ring = gen.caches[gi][i]["pos"][0].tolist()
+        check(prompt > window and sorted(ring) == list(range(end - window, end)),
+              f"{arch}: the local layers' ring does not hold the last {window} positions")
+        rec["window"] = window
+    del gen
+    if cfg.moe is not None:   # the prefill again, counting dropped assignments (decode's groups are one token)
+        _, rec["dropped_assignments"], rec["assignments"] = moe_drops(
+            MOE, lambda: M.prefill(params, batch, cfg, cache_len))
+        rec["capacity_factor"] = cfg.moe.capacity_factor
+    if cfg.mla is not None:
+        rec["absorbed_vs_decompressed"] = mla_forms(torch, M, cfg, params, batch, cache_len)
+    rec["consistency"] = decode_vs_train(torch, M, MOE, cfg, params, spec["consist"], seed)[0]
+    rec["peak_device_bytes_with_consistency"] = torch.cuda.max_memory_allocated()
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mla_forms(torch, M, cfg, params, batch, cache_len):
+    """(e): deepseek's prefill decompressed and absorbed (``mla_absorbed``),
+    timed, at the served activations and at fp32; the two forms' logits
+    must agree within MODEL_TOL at fp32, where they differ by fp32 rounding
+    (at bf16 the absorbed form rounds its absorbed query to bf16 too, so
+    that error is recorded beside its times)."""
+    out = {}
+    for dtype in (cfg.activation_dtype, "float32"):
+        logits = {}
+        for name, absorbed in (("decompressed", False), ("absorbed", True)):
+            c = dataclasses.replace(cfg, activation_dtype=dtype, mla_absorbed=absorbed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[name] = M.prefill(params, batch, c, cache_len)[0]
+            torch.cuda.synchronize()
+            out.setdefault(dtype, {})[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[dtype]["rel_err"] = rel_err(logits["absorbed"], logits["decompressed"])
+    err = out["float32"]["rel_err"]
+    check(err <= MODEL_TOL["float32"], f"{cfg.name}: absorbed prefill {err:.3g} from decompressed at fp32")
+    out["float32"]["tol"] = MODEL_TOL["float32"]
+    return out
 
 
 def phase_model_serve(torch, seed):
     """Phase 11, the model serving path, with the launch counters from 0:
-    (a) the six attention-family archs' reduced configs on the card against
-    the port on the CPU with the same parameters (prefill logits and
-    caches, 8 teacher-forced decode steps' logits and caches, greedy
+    (a) all ten archs' reduced configs on the card against the port on the
+    CPU with the same parameters (prefill logits and caches or states, 8
+    teacher-forced decode steps' logits and caches or states, greedy
     tokens); (b) gemma3-12b at full width and depth (fp32 weights drawn on
     the card) serving SERVE_BATCH prompts of SERVE_PROMPT tokens and
     SERVE_NEW new tokens through ``launch/serve``, with the card's name and
     power limit beside its times; (c) the same weights at batch 1 with fp32
     activations: decode against forward_train, and _flash against
-    attention_plain at a local and a global layer; (d) no kernel of
-    ``repro_torch.kernels`` launches: the models call none."""
+    attention_plain at a local and a global layer; (e) after (b)'s weights
+    are freed, the four archs of FULL_ARCHS at full width (deepseek-v2 and
+    arctic cut in depth), one after another: serving FULL_BATCH prompts and
+    FULL_NEW new tokens (prefill, decode, tokens/s, peak device memory,
+    the MoE's dropped assignments, deepseek's absorbed prefill against the
+    decompressed one), then decode against forward_train at batch 1 with
+    fp32 activations; (d) no kernel of ``repro_torch.kernels`` launches:
+    the models call none."""
     from repro_torch import configs
     from repro_torch.kernels import dense_tile, distance_tile, flash_attention
     from repro_torch.launch import serve
@@ -3350,6 +3522,7 @@ def phase_model_serve(torch, seed):
     from repro_torch.models import blocks as B
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
 
     mods = (distance_tile, dense_tile, flash_attention)
     for mod in mods:
@@ -3368,8 +3541,14 @@ def phase_model_serve(torch, seed):
         t0 = time.perf_counter()
         rec["consistency"] = model_consistency(torch, M, A, B, L, configs, params, seed)
         rec["consistency"]["wall_s"] = time.perf_counter() - t0
-    del params
-    torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["full_width"] = {}
+        for arch in FULL_ARCHS:
+            t0 = time.perf_counter()
+            rec["full_width"][arch] = model_full_arch(torch, serve, M, MOE, configs, arch, seed)
+            rec["full_width"][arch]["wall_s"] = time.perf_counter() - t0
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     check(not any(launches.values()), f"the model path launched {({k: v for k, v in launches.items() if v})}")
     rec["launches"] = {k: v for k, v in launches.items() if v}

@@ -1,13 +1,11 @@
 """Batched serving driver: prefill a batch of prompts, then decode greedily.
 
-    python -m repro_torch.launch.serve --arch gemma3_12b --batch 4 \
+    python -m repro_torch.launch.serve --arch xlstm_125m --batch 4 \
         --prompt-len 32 --max-new 16 [--full-config] [--device cpu]
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
-(default ``cuda``, which needs a card).  The default arch is
-``gemma3_12b``: the reference's default, ``xlstm_125m``, is recurrent,
-which the port does not have yet (ROADMAP item 13b).  Parameters are
-random, drawn on the device from a ``torch.Generator`` seeded with 0;
+(default ``cuda``, which needs a card), for every arch of
+``repro_torch.configs``.  Parameters are random, drawn on the device from a ``torch.Generator`` seeded with 0;
 prompts (and the encoder's frames / the vision stub's patches) are drawn
 from numpy's ``default_rng(0)`` as in the reference.
 """
@@ -81,7 +79,7 @@ def generate(cfg, params, batch, max_new: int) -> Generation:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma3_12b")
+    ap.add_argument("--arch", default="xlstm_125m")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

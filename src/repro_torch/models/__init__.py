@@ -1,8 +1,10 @@
-"""The model serving path's models, PyTorch port of ``repro.models``: the
-attention-family architectures (GQA / MHA, local windows, qk-norm, qkv
-bias, tied embeddings, logit softcap, a bidirectional encoder and gated
-cross-attention).  MLA, MoE and the recurrent blocks are ROADMAP item 13b.
+"""The model serving path's models, PyTorch port of ``repro.models``: all
+ten architectures of ``repro_torch.configs`` (GQA / MHA, local windows,
+qk-norm, qkv bias, tied embeddings, logit softcap, a bidirectional encoder,
+gated cross-attention, multi-head latent attention, the MoE FFN, and the
+RG-LRU, mLSTM and sLSTM mixers).
 """
+from repro_torch.models import mla, moe, recurrent  # noqa: F401
 from repro_torch.models.config import BlockCfg, MLACfg, MoECfg, ModelConfig  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     abstract_params,

@@ -1,10 +1,9 @@
 """Attention: GQA/MHA/MQA, local (sliding-window) and cross attention.
 
-PyTorch port of ``repro.models.attention`` (MLA is ``models/mla.py`` in
-the reference, not ported yet).  The training / prefill path is the
-reference's flash formulation in torch ops: an online softmax over key
-chunks inside a loop over query chunks, so the (Sq, Sk) score matrix is
-never materialized.  ``attention_plain`` is the materialized softmax with
+PyTorch port of ``repro.models.attention`` (MLA is ``models/mla.py``).
+The training / prefill path is the reference's flash formulation in torch
+ops: an online softmax over key chunks inside a loop over query chunks,
+so the (Sq, Sk) score matrix is never materialized.  ``attention_plain`` is the materialized softmax with
 the same masks, the yardstick the tests and ``chip_smoke.py`` hold
 ``_flash`` to; nothing on the model path calls it.  The decode path scores
 one query against the KV cache; local attention uses a ring-buffer cache

@@ -4,13 +4,11 @@
 Every block kind exposes three entry points sharing one param dict:
   init   -- parameters
   seq    -- full-sequence forward (train / prefill); optionally fills a cache
-  step   -- single-token decode against the cache (written in place)
-Pre-norm residual structure throughout.
-
-The port has the ``attn`` kind: causal and bidirectional self-attention,
-gated cross-attention and the swiglu FFN.  Multi-head latent attention,
-the MoE FFN and the recurrent kinds (recurrent / mlstm / slstm) raise
-``NotImplementedError`` (ROADMAP Queue A item 13b).
+  step   -- single-token decode against the cache or state, written in place
+Pre-norm residual structure throughout.  Kinds: ``attn`` (GQA / MHA / MQA,
+local windows, bidirectional, gated cross-attention, or MLA when
+``cfg.mla`` is set), ``recurrent`` (Griffin), ``mlstm`` and ``slstm``
+(xLSTM); the FFN is swiglu or, where ``blk.moe``, the MoE.
 """
 from __future__ import annotations
 
@@ -18,43 +16,51 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as R
 from repro_torch.models.config import BlockCfg, ModelConfig
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP Queue A item 13b "
-        "(models/mla.py, moe.py and recurrent.py)"
-    )
-
-
-def _check_ported(cfg: ModelConfig, blk: BlockCfg) -> None:
-    if blk.kind in ("recurrent", "mlstm", "slstm"):
-        raise _not_ported(f"the {blk.kind} block")
-    if blk.kind != "attn":
-        raise ValueError(f"unknown block kind {blk.kind}")
-    if cfg.mla is not None:
-        raise _not_ported("multi-head latent attention (MLA)")
+def _ffn_init(init, cfg, blk, dtype):
     if blk.moe:
-        raise _not_ported("the MoE FFN")
+        return MOE.moe_init(init, cfg, dtype)
+    return L.swiglu_init(init, cfg.d_model, cfg.d_ff, dtype)
+
+
+def _ffn_apply(p, x, cfg, blk):
+    if blk.moe:
+        return MOE.moe_apply(p, x, cfg)
+    return L.swiglu(p, x)
 
 
 def block_init(init: L.Init, cfg: ModelConfig, blk: BlockCfg):
-    _check_ported(cfg, blk)
     dtype = L.dt(cfg.param_dtype)
     d = cfg.d_model
-    dims = A.AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
     p = {"ln1": L.rmsnorm_init(init, d, dtype)}
-    p["attn"] = A.attn_init(
-        init, d, dims, dtype, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm
-    )
-    if blk.cross_attn:
-        p["lnx"] = L.rmsnorm_init(init, d, dtype)
-        p["xattn"] = A.attn_init(init, d, dims, dtype, qk_norm=cfg.qk_norm)
-        p["xgate"] = init.zeros((1,), dtype)  # gated cross-attn (llama-vision)
+    if blk.kind == "attn":
+        dims = A.AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+        if cfg.mla is not None:
+            p["attn"] = MLA.mla_init(init, cfg, dtype)
+        else:
+            p["attn"] = A.attn_init(init, d, dims, dtype, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+        if blk.cross_attn:
+            p["lnx"] = L.rmsnorm_init(init, d, dtype)
+            p["xattn"] = A.attn_init(init, d, dims, dtype, qk_norm=cfg.qk_norm)
+            p["xgate"] = init.zeros((1,), dtype)  # gated cross-attn (llama-vision)
+    elif blk.kind == "recurrent":
+        p["rec"] = R.recurrent_block_init(init, d, cfg.d_rnn, cfg.conv_width, dtype)
+    elif blk.kind == "mlstm":
+        p["cell"] = R.mlstm_init(init, d, cfg.num_heads, 2 * d, dtype)
+        return p
+    elif blk.kind == "slstm":
+        p["cell"] = R.slstm_init(init, d, cfg.num_heads, dtype)
+        return p
+    else:
+        raise ValueError(f"unknown block kind {blk.kind}")
     if blk.mlp:
         p["ln2"] = L.rmsnorm_init(init, d, dtype)
-        p["ffn"] = L.swiglu_init(init, cfg.d_model, cfg.d_ff, dtype)
+        p["ffn"] = _ffn_init(init, cfg, blk, dtype)
     return p
 
 
@@ -66,8 +72,8 @@ def _cross(p, x, cfg, attend):
 
 
 def _ffn(p, x, cfg, blk):
-    if blk.mlp:
-        x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if blk.mlp and blk.kind in ("attn", "recurrent"):
+        x = x + _ffn_apply(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, blk)
     return x
 
 
@@ -76,24 +82,40 @@ def _ffn(p, x, cfg, blk):
 
 def block_seq(p, x, positions, cfg, blk, *, memory=None, want_cache=False,
               cache_len=0):
-    """Full-sequence block. Returns (x, cache or None)."""
-    _check_ported(cfg, blk)
-    cache = None
+    """Full-sequence block. Returns (x, cache or state, or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if want_cache:
-        y, (k, v) = A.attention(
-            p["attn"], h, positions, cfg, blk,
-            causal=not blk.bidirectional, return_kv=True,
-        )
-        cache = _kv_prefill_cache(k, v, positions, cfg, blk, cache_len)
+    cache = None
+    if blk.kind == "attn":
+        if cfg.mla is not None:
+            # the absorbed form only on the prefill path (want_cache), as in the reference
+            use_absorbed = cfg.mla_absorbed and want_cache
+            mla_fn = MLA.mla_attention_absorbed if use_absorbed else MLA.mla_attention
+            y = mla_fn(p["attn"], h, positions, cfg, blk)
+            if want_cache:
+                cache = _mla_prefill_cache(p["attn"], h, positions, cfg, cache_len)
+        elif want_cache:
+            y, (k, v) = A.attention(
+                p["attn"], h, positions, cfg, blk,
+                causal=not blk.bidirectional, return_kv=True,
+            )
+            cache = _kv_prefill_cache(k, v, positions, cfg, blk, cache_len)
+        else:
+            y = A.attention(p["attn"], h, positions, cfg, blk, causal=not blk.bidirectional)
+        x = x + y
+        if blk.cross_attn and memory is not None:
+            x = _cross(p, x, cfg, lambda hx: A.attention(
+                p["xattn"], hx, positions, cfg, blk, memory=memory))
+    elif blk.kind in ("recurrent", "mlstm", "slstm"):
+        if blk.kind == "recurrent":
+            y, state = R.recurrent_block_seq(p["rec"], h)
+        elif blk.kind == "mlstm":
+            y, state = R.mlstm_seq(p["cell"], h, cfg.num_heads)
+        else:
+            y, state = R.slstm_seq(p["cell"], h, cfg.num_heads)
+        x = x + y
+        cache = state if want_cache else None
     else:
-        y = A.attention(
-            p["attn"], h, positions, cfg, blk, causal=not blk.bidirectional,
-        )
-    x = x + y
-    if blk.cross_attn and memory is not None:
-        x = _cross(p, x, cfg, lambda hx: A.attention(
-            p["xattn"], hx, positions, cfg, blk, memory=memory))
+        raise ValueError(f"unknown block kind {blk.kind}")
     return _ffn(p, x, cfg, blk), cache
 
 
@@ -111,22 +133,66 @@ def _kv_prefill_cache(k, v, positions, cfg, blk, cache_len):
     return cache
 
 
+def _mla_prefill_cache(p_attn, h, positions, cfg, cache_len):
+    """The MLA decode cache after prefill: the latent and RoPE key at their positions."""
+    cache = MLA.mla_init_cache(cfg, h.shape[0], cache_len, h.dtype, device=h.device)
+    ckv, kr = MLA.latent_kv(p_attn, h, positions, cfg)
+    idx = positions.long()
+    cache["ckv"][:, idx] = ckv.to(cache["ckv"].dtype)
+    cache["kr"][:, idx] = kr.to(cache["kr"].dtype)
+    cache["pos"][idx] = positions.to(torch.int32)
+    return cache
+
+
 # ------------------------------------------------------------ step form ----
 
 
+def _write_state(cache, new):
+    """Copy a recurrent step's new state into the state it was given: the
+    caller's stacked caches hold views, which ``decode_step`` keeps."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
 def block_step(p, x, cache, pos, cfg, blk, *, memory=None):
-    """One-token decode. x: (B,1,D). Returns (x, cache), the cache written
-    in place (``attention_decode``)."""
-    _check_ported(cfg, blk)
+    """One-token decode. x: (B,1,D). Returns (x, cache): the attention and
+    MLA caches are written at slot ``pos`` in place, the recurrent states
+    overwritten with the step's new state."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = A.attention_decode(p["attn"], h, cache, pos, cfg, blk)
-    x = x + y
-    if blk.cross_attn and memory is not None:
-        x = _cross(p, x, cfg, lambda hx: A.attention_decode(
-            p["xattn"], hx, None, pos, cfg, blk, memory=memory)[0])
+    if blk.kind == "attn":
+        if cfg.mla is not None:
+            y, cache = MLA.mla_decode(p["attn"], h, cache, pos, cfg, blk)
+        else:
+            y, cache = A.attention_decode(p["attn"], h, cache, pos, cfg, blk)
+        x = x + y
+        if blk.cross_attn and memory is not None:
+            x = _cross(p, x, cfg, lambda hx: A.attention_decode(
+                p["xattn"], hx, None, pos, cfg, blk, memory=memory)[0])
+    elif blk.kind in ("recurrent", "mlstm", "slstm"):
+        if blk.kind == "recurrent":
+            y, new = R.recurrent_block_step(p["rec"], h, cache)
+        elif blk.kind == "mlstm":
+            y, new = R.mlstm_step(p["cell"], h, cache, cfg.num_heads)
+        else:
+            y, new = R.slstm_step(p["cell"], h, cache, cfg.num_heads)
+        x = x + y
+        cache = _write_state(cache, new)
+    else:
+        raise ValueError(f"unknown block kind {blk.kind}")
     return _ffn(p, x, cfg, blk), cache
 
 
 def block_init_cache(cfg, blk, batch: int, cache_len: int, dtype, device="cuda"):
-    _check_ported(cfg, blk)
-    return A.init_cache(cfg, blk, batch, cache_len, dtype, device=device)
+    if blk.kind == "attn":
+        if cfg.mla is not None:
+            return MLA.mla_init_cache(cfg, batch, cache_len, dtype, device=device)
+        return A.init_cache(cfg, blk, batch, cache_len, dtype, device=device)
+    if blk.kind == "recurrent":
+        return R.recurrent_block_init_state(batch, cfg.d_rnn, cfg.conv_width, dtype, device=device)
+    if blk.kind == "mlstm":
+        dh = 2 * cfg.d_model // cfg.num_heads
+        return R.mlstm_init_state(batch, cfg.num_heads, dh, device=device)
+    if blk.kind == "slstm":
+        return R.slstm_init_state(batch, cfg.num_heads, cfg.d_model // cfg.num_heads, device=device)
+    raise ValueError(f"unknown block kind {blk.kind}")

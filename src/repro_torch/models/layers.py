@@ -24,6 +24,9 @@ def dt(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+DRAW_SLICE = 1 << 26   # fp32 elements drawn at once for a leaf of another dtype
+
+
 class Init:
     """Draws parameter leaves on ``device`` from ``generator``.
 
@@ -46,10 +49,27 @@ class Init:
         return torch.empty(self.lead + tuple(shape), dtype=dtype, device=self.device)
 
     def normal(self, shape, std: float, dtype) -> torch.Tensor:
-        """fp32 normal draws times ``std``, cast to ``dtype``."""
+        """fp32 normal draws times ``std``, cast to ``dtype``.  A leaf of
+        another dtype larger than ``DRAW_SLICE`` elements is drawn in slices
+        of that many, so the fp32 transient stays bounded (one of arctic's
+        bf16 expert stacks is 17.8 GB in fp32)."""
+        w = self._empty(shape, dtype)
+        if self.device.type == "meta":
+            return w
+        if dtype == torch.float32:
+            return w.normal_(0.0, float(std), generator=self.generator)
+        flat = w.view(-1)
+        for start in range(0, flat.numel(), DRAW_SLICE):
+            part = flat[start:start + DRAW_SLICE]
+            draw = torch.empty(part.shape, dtype=torch.float32, device=self.device)
+            part.copy_(draw.normal_(0.0, float(std), generator=self.generator))
+        return w
+
+    def uniform(self, shape, low: float, high: float, dtype) -> torch.Tensor:
+        """fp32 uniform draws on [low, high), cast to ``dtype``."""
         w = self._empty(shape, torch.float32)
         if self.device.type != "meta":
-            w.normal_(0.0, float(std), generator=self.generator)
+            w.uniform_(float(low), float(high), generator=self.generator)
         return w.to(dtype)
 
     def ones(self, shape, dtype) -> torch.Tensor:

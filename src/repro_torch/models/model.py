@@ -266,15 +266,17 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 def decode_step(params, caches, token, pos, cfg: ModelConfig, *, memory=None):
     """token: (B,) int; pos: int. Returns (logits, caches).
 
-    The reference returns new caches; the port writes slot ``pos`` of each
-    layer's cache in place and returns ``caches`` itself, so a caller that
-    needs the caches as they were must clone them first.
+    The reference returns new caches; the port writes each layer's cache in
+    place (slot ``pos`` of an attention or MLA cache, the whole of a
+    recurrent state) through the views ``a[r]`` of the stacked caches and
+    returns ``caches`` itself, so a caller that needs the caches as they
+    were must clone them first.
     """
     x = _embed_tokens(params, cfg, token[:, None])
     for gp, gc, (pattern, repeat) in zip(params["groups"], caches, cfg.groups):
         for r in range(repeat):
             for i, blk in enumerate(pattern):
-                x, _ = B.block_step(
+                x, _ = B.block_step(   # the cache view, written in place
                     tree_map(lambda a: a[r], gp[i]), x, tree_map(lambda a: a[r], gc[i]),
                     pos, cfg, blk, memory=memory,
                 )
@@ -288,7 +290,11 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *, memory=None):
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count, from the tree on ``meta``.  ``active_only``
-    differs from the total only for MoE configs, which ``abstract_params``
-    does not build yet (ROADMAP item 13b)."""
-    del active_only
-    return sum(x.numel() for x in tree_leaves(abstract_params(cfg)))
+    subtracts, for MoE configs, the experts a token does not route to."""
+    total = sum(x.numel() for x in tree_leaves(abstract_params(cfg)))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        moe_layers = sum(sum(1 for b in pattern if b.moe) * repeat for pattern, repeat in cfg.groups)
+        per_expert = 3 * cfg.d_model * m.expert_ff
+        total -= (m.num_experts - m.top_k) * per_expert * moe_layers
+    return total

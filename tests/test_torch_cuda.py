@@ -27,9 +27,10 @@ blocks launch only the fused steps, and ``ring_self_join_counts`` on a
 one-rank NCCL group equals the brute force; the host-loop join and dedup
 on the card equal the same calls on the CPU, launching K1 / K2 per pair per
 ``ops`` chunk (dedup: the fused pairs step), and the profiler bridge puts
-one range around each count chunk's fused kernel; reduced gemma3 on the
-card equals the same parameters on the CPU (``chip_smoke.MODEL_TOL``) and
-launches no kernel.  Flash attention compares within 2e-5 in f32 and
+one range around each count chunk's fused kernel; reduced gemma3,
+recurrentgemma, xlstm, deepseek-v2 and arctic on the card equal the same
+parameters on the CPU (``chip_smoke.MODEL_TOL``), decode steps and states
+included, and launch no kernel.  Flash attention compares within 2e-5 in f32 and
 2e-2 in bf16 (one bf16 rounding of the output), the JAX tests' tolerances,
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
@@ -693,18 +694,18 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     assert flash_attention.LAUNCHES == before
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_reduced_model_on_the_card_equals_the_cpu(cuda, dtype):
-    """Reduced gemma3 (window 8, so the ring wraps in prefill and decode) on
-    the card against the same parameters on the CPU: prefill logits and
-    caches, 8 teacher-forced decode steps, greedy tokens (chip_smoke phase
-    11 (a), ``MODEL_TOL``); no kernel of ``repro_torch.kernels`` launches."""
+def _reduced_card_vs_cpu(cuda, arch, dtype):
+    """``arch``'s reduced config on the card against the same parameters on
+    the CPU: prefill logits and caches or states, 8 teacher-forced decode
+    steps' logits, the caches or states after them, greedy tokens (chip_smoke
+    phase 11 (a), ``MODEL_TOL``); no kernel of ``repro_torch.kernels``
+    launches.  Returns the card's run."""
     from chip_smoke import MODEL_TOL, model_twin, rel_err, tree_err
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(configs.get_reduced_config("gemma3_12b"), activation_dtype=dtype)
+    cfg = dataclasses.replace(configs.get_reduced_config(arch), activation_dtype=dtype)
     params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES, **flash_attention.LAUNCHES}
     with torch.no_grad():
@@ -721,4 +722,19 @@ def test_reduced_model_on_the_card_equals_the_cpu(cuda, dtype):
         for b in torch.nonzero(g != w).flatten().tolist():   # only on a near-tie of the CPU's top 2
             top2 = torch.topk(lg[b], 2).values
             assert float(top2[0] - top2[1]) <= tol * float(lg[b].abs().max())
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_model_on_the_card_equals_the_cpu(cuda, dtype):
+    """Reduced gemma3 (window 8, so the ring wraps in prefill and decode)."""
+    got = _reduced_card_vs_cpu(cuda, "gemma3_12b", dtype)
     assert sorted(got["decoded_caches"][0][0]["pos"][0].tolist()) == list(range(12, 20))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_125m", "deepseek_v2_236b", "arctic_480b"])
+def test_reduced_recurrent_mla_moe_models_on_the_card_equal_the_cpu(cuda, arch, dtype):
+    """The four archs of MLA, MoE and the recurrent mixers: their recurrent
+    states and MLA caches after 8 chained decode steps too."""
+    _reduced_card_vs_cpu(cuda, arch, dtype)

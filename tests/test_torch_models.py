@@ -26,20 +26,17 @@ import pytest
 import torch
 
 import repro.configs as ref_configs
-import repro.models as ref_models
 from model_twins import (
-    ATTN_ARCHS, OTHER_ARCHS, TOL, assert_close, assert_tree_close, make_batch, to_jax, to_torch,
-    twin_configs, twin_params,
+    ATTN_ARCHS, DECODE_STEPS, DTYPES, PROMPT, TOL, assert_close, check_abstract_params, check_decode,
+    check_decode_matches_forward_train, check_forward_loss, check_forward_train, check_init_distributions,
+    check_param_counts, check_prefill, twin_run,
 )
 from repro.models import attention as ref_A
 from repro.models import layers as ref_L
 from repro_torch import configs, models
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models import model as M
 
-DTYPES = ["float32", "bfloat16"]
-PROMPT, DECODE_STEPS, BATCH = 12, 8, 2
 
 
 # -- configs ---------------------------------------------------------------
@@ -64,86 +61,19 @@ def test_configs_match_reference_field_for_field(arch):
 # -- parameters --------------------------------------------------------------
 
 
-def _shapes(tree):
-    """{path: (shape, dtype name)} of a torch, jax or ShapeDtypeStruct tree."""
-    out = {}
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, f"{path}.{k}")
-        elif isinstance(t, (list, tuple)):
-            for i, v in enumerate(t):
-                walk(v, f"{path}[{i}]")
-        else:
-            out[path] = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
-
-    walk(tree, "")
-    return out
-
-
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_abstract_params_match_reference_at_full_width(arch):
-    got = models.abstract_params(configs.get_config(arch))
-    assert all(t.device.type == "meta" for t in M.tree_leaves(got))
-    assert _shapes(got) == _shapes(ref_models.abstract_params(ref_configs.get_config(arch)))
+    check_abstract_params(arch)
 
 
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_param_counts_match_reference(arch):
-    cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
-    assert models.count_params_analytic(cfg) == ref_models.count_params_analytic(ref_cfg)
-    assert cfg.param_count() == ref_cfg.param_count()
-    assert cfg.active_param_count() == ref_cfg.active_param_count()
-
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_unported_archs_raise_item_13b(arch):
-    with pytest.raises(NotImplementedError, match="13b"):
-        models.count_params_analytic(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="13b"):
-        models.init_params(configs.get_reduced_config(arch), device="cpu")
+    check_param_counts(arch)
 
 
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_init_params_tree_and_distributions(arch):
-    cfg = configs.get_reduced_config(arch)
-    got = models.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    want = jax.eval_shape(lambda: ref_models.init_params(ref_configs.get_reduced_config(arch), jax.random.key(0)))
-    assert _shapes(got) == _shapes(want)
-    leaves = {}
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, path + (k,))
-        elif isinstance(t, list):
-            for v in t:
-                walk(v, path)
-        else:
-            leaves.setdefault(path, []).append(t)
-
-    walk(got, ())
-    seen = set()
-    for path, ts in leaves.items():
-        name = path[-1]
-        for t in ts:
-            if name == "table":
-                std = 0.02
-            elif name == "w":
-                std = 1.0 / np.sqrt(t.shape[-2])
-            else:
-                fill = 1.0 if name == "scale" else 0.0   # norm scales; biases and xgate
-                assert bool((t == fill).all()), path
-                seen.add(name)
-                continue
-            got_std = float(t.double().std())
-            assert abs(got_std / std - 1) < 0.05, (path, got_std, std)
-            assert abs(float(t.double().mean())) < 0.1 * std, path
-            seen.add(name)
-    assert {"table", "w", "scale"} <= seen
-    again = models.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    assert all(torch.equal(a, b) for a, b in zip(M.tree_leaves(got), M.tree_leaves(again)))
+    check_init_distributions(arch)
 
 
 def test_params_from_numpy_keeps_bfloat16_bits():
@@ -303,47 +233,8 @@ def test_flash_matches_reference_and_plain(case, dtype):
 
 # -- the model, per arch -----------------------------------------------------
 
-_RUNS = {}
-
-
 def _run(arch, dtype):
-    """Both packages on the same weights and inputs (memoized per case)."""
-    if (arch, dtype) in _RUNS:
-        return _RUNS[arch, dtype]
-    ref_cfg, cfg = twin_configs(arch, dtype)
-    ref_params, params = twin_params(ref_cfg, seed=1)
-    batch = make_batch(cfg, BATCH, PROMPT, seed=3)
-    cache_len = PROMPT + DECODE_STEPS
-    steps = np.random.default_rng(5).integers(0, cfg.vocab, (DECODE_STEPS, BATCH)).astype(np.int32)
-    out = {"cfg": cfg, "ref": {}, "port": {}}
-    ref, port = out["ref"], out["port"]
-
-    with jax.disable_jit():   # op by op: see the module docstring
-        jb = to_jax(batch)
-        ref["loss"], ref["logits"] = ref_models.forward_train(ref_params, jb, ref_cfg)
-        ref["ce"] = ref_models.forward_loss(ref_params, jb, ref_cfg)
-        ref["prefill"], caches, memory = ref_models.prefill(ref_params, jb, ref_cfg, cache_len)
-        ref["memory"], ref["caches"] = memory, jax.tree.map(np.asarray, caches)
-        ref["decode"] = []
-        for i, tok in enumerate(steps):
-            lg, caches = ref_models.decode_step(ref_params, caches, jnp.asarray(tok), jnp.int32(PROMPT + i),
-                                                ref_cfg, memory=memory)
-            ref["decode"].append(lg)
-        ref["decoded_caches"] = jax.tree.map(np.asarray, caches)
-
-    tb = to_torch(batch)
-    port["loss"], port["logits"] = models.forward_train(params, tb, cfg)
-    port["ce"] = models.forward_loss(params, tb, cfg)
-    port["prefill"], caches, port["memory"] = models.prefill(params, tb, cfg, cache_len)
-    port["caches"] = M.tree_map(torch.clone, caches)   # decode writes the caches in place
-    port["decode"] = []
-    for i, tok in enumerate(steps):
-        lg, caches = models.decode_step(params, caches, torch.from_numpy(tok), PROMPT + i, cfg,
-                                        memory=port["memory"])
-        port["decode"].append(lg)
-    port["decoded_caches"] = caches
-    _RUNS[arch, dtype] = out
-    return out
+    return twin_run(arch, dtype)   # the reference op by op: see the module docstring
 
 
 CASES = [pytest.param(a, d, id=f"{a}-{d}") for a in ATTN_ARCHS for d in DTYPES]
@@ -351,38 +242,22 @@ CASES = [pytest.param(a, d, id=f"{a}-{d}") for a in ATTN_ARCHS for d in DTYPES]
 
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_forward_train_matches_reference(arch, dtype):
-    run = _run(arch, dtype)
-    assert run["port"]["logits"].shape == (BATCH, PROMPT, run["cfg"].vocab)
-    assert_close(run["port"]["logits"], run["ref"]["logits"], TOL[dtype], "logits")
-    assert_close(run["port"]["loss"], run["ref"]["loss"], TOL[dtype], "loss")
+    check_forward_train(_run(arch, dtype), dtype)
 
 
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_forward_loss_matches_reference(arch, dtype):
-    run = _run(arch, dtype)
-    assert_close(run["port"]["ce"], run["ref"]["ce"], TOL[dtype], "forward_loss")
-    # the streaming CE equals the dense loss within fp32 rounding
-    assert_close(run["port"]["ce"], run["port"]["loss"], 1e-5, "forward_loss vs forward_train")
+    check_forward_loss(_run(arch, dtype), dtype)
 
 
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_prefill_logits_and_caches_match_reference(arch, dtype):
-    run = _run(arch, dtype)
-    assert_close(run["port"]["prefill"], run["ref"]["prefill"], TOL[dtype], "prefill logits")
-    if run["ref"]["memory"] is None:
-        assert run["port"]["memory"] is None
-    else:
-        assert_close(run["port"]["memory"], run["ref"]["memory"], TOL[dtype], "memory")
-    assert_tree_close(run["port"]["caches"], run["ref"]["caches"], TOL[dtype], "prefill caches")
+    check_prefill(_run(arch, dtype), dtype)
 
 
 @pytest.mark.parametrize("arch,dtype", CASES)
 def test_decode_steps_match_reference(arch, dtype):
-    run = _run(arch, dtype)
-    for i, (got, want) in enumerate(zip(run["port"]["decode"], run["ref"]["decode"])):
-        assert got.shape == (BATCH, run["cfg"].vocab) and got.dtype == torch.float32
-        assert_close(got, want, TOL[dtype], f"decode step {i}")
-    assert_tree_close(run["port"]["decoded_caches"], run["ref"]["decoded_caches"], TOL[dtype], "decoded caches")
+    check_decode(_run(arch, dtype), dtype)
 
 
 def test_gemma_ring_wraps_in_prefill_and_decode():
@@ -404,12 +279,4 @@ def test_decode_matches_forward_train_at_the_last_position():
     """The reference's own bound (tests/test_archs_smoke.py): prefill on s-1
     tokens plus one decode step equals forward_train at s-1, rel < 5e-3."""
     for arch in ATTN_ARCHS:
-        _, cfg = twin_configs(arch, "float32")
-        params = models.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
-        batch = to_torch(make_batch(cfg, 2, 24, seed=3))
-        _, logits = models.forward_train(params, batch, cfg)
-        ctx = dict(batch, tokens=batch["tokens"][:, :23], labels=batch["tokens"][:, :23])
-        _, caches, memory = models.prefill(params, ctx, cfg, cache_len=32)
-        lg, _ = models.decode_step(params, caches, batch["tokens"][:, 23], 23, cfg, memory=memory)
-        ref = logits[:, 23]
-        assert float((lg - ref).abs().max() / ref.abs().max()) < 5e-3, arch
+        check_decode_matches_forward_train(arch)
