@@ -183,7 +183,32 @@ Phases, each printing one JSON line:
    the MoE's dropped assignments at the default capacity, and decode
    against ``forward_train`` at batch 1 with fp32 activations (rel < 5e-3,
    the MoE at capacity factor 8); (d) no kernel launches: the models call
-   none.  ``--model-serve-only`` runs this phase alone.
+   none.  ``--model-serve-only`` runs this phase alone;
+12. model_train -- the training path (``repro_torch.train``,
+   ``launch/train``), after phase 11, with its own launch counters: (a)
+   all ten archs' reduced configs, one ``make_train_step`` step on the
+   card against the same step on the CPU from the same weights and batch
+   (2 x 40 tokens, a vocab chunk of 200), at fp32 and bf16 activations:
+   loss, grad_norm, lr and the gradients within MODEL_TOL (at fp32 every
+   element of its leaf's largest, at bf16 ||diff|| / ||ref|| over the
+   whole gradient),
+   the updated params within MODEL_TOL of their leaf's largest (2 lr more
+   where the CPU's gradient is within MODEL_TOL of 0, whose sign AdamW's
+   first step reads); (b) xlstm-125m uncut (12 layers, 102,425,160 fp32 parameters)
+   through ``launch/train.main`` with ``--full-config --batch 8 --seq 1024
+   --dedup``: 4 steps with a checkpoint every 2, then 2 steps in a second
+   directory and a resume to 4, the final losses and the step-4 params
+   within 1e-4; (c) recurrentgemma-2b uncut (26 layers, 2,894,481,920 fp32
+   parameters, vocab 256,000, local MQA window 2048, remat "block" with
+   flash_remat) for 3 ``make_train_step`` steps at 2 x 2048 tokens, no
+   checkpoint: per step forward, backward and optimizer ms (CUDA events),
+   tokens/s, peak device memory, loss and grad_norm finite, the params
+   moved; (d) at recurrentgemma's widths, fp32: the streaming CE's
+   gradients against the dense ``log_softmax``'s and ``_flash``'s
+   (``remat_kv``) against ``attention_plain``'s, within 1e-4, each with
+   its bytes saved for backward; only (b)'s dedup launches kernels: K1
+   (the result-size estimate) and K2's fused pairs step at T = 32.
+   ``--model-train-only`` runs this phase alone.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -195,7 +220,8 @@ Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
 and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``), phase 9
 (``fused_ring_launches``, its ranks' counters summed), phase 10
-(``downstream_launches``) and phase 11 (``model_serve_launches``, all 0), and K5's just
+(``downstream_launches``), phase 11 (``model_serve_launches``, all 0) and phase 12
+(``model_train_launches``, the dedup's), and K5's just
 before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
@@ -206,6 +232,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -3557,6 +3584,406 @@ def phase_model_serve(torch, seed):
     return launches
 
 
+# -- phase 12: the training path ------------------------------------------------
+
+TRAIN_HP = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}   # (a)'s AdamW (step 1: lr 5e-4)
+TRAIN_BATCH, TRAIN_SEQ = 2, 40          # (a): three 16-row query / key chunks, the last padded
+TRAIN_CE_CHUNK = 200                    # (a): the reduced vocab of 512 in three chunks, the last overlapping
+XLSTM_TRAIN = ["--arch", "xlstm_125m", "--full-config", "--batch", "8", "--seq", "1024", "--dedup",
+               "--device", "cuda", "--ckpt-every", "2"]   # (b): launch/train's default arch, uncut
+XLSTM_PARAMS = 102_425_160              # the reference's count_params_analytic at xlstm-125m
+XLSTM_STEPS = 4
+RESUME_TOL = 1e-4                       # (b): resumed against uninterrupted, max|diff| / max|ref| (the
+                                        # embedding's scatter-add on the card is not bit-deterministic)
+RG_ARCH = "recurrentgemma_2b"           # (c): uncut, bf16 activations, remat="block", flash_remat
+RG_BATCH, RG_SEQ, RG_STEPS = 2, 2048, 3
+RG_PARAMS = 2_894_481_920               # the reference's count_params_analytic at recurrentgemma-2b
+RG_HEADROOM = 6e9                       # device bytes (c) needs beyond params, grads, m and v: its peak
+                                        # lies 3.1 GB past them (5.9 GB when the bf16 gradient copy was
+                                        # made whole, before it was cast leaf by leaf)
+BWD_TOL = 1e-4                          # (d): the rematerialized backwards against the materialized ones
+CE_TOKENS = (1, 2048)                   # (d): the streaming CE's tokens at recurrentgemma's vocab
+
+
+def to_device(M, tree, device):
+    return M.tree_map(lambda t: t.detach().to(device).clone(), tree)
+
+
+def train_twin_step(torch, M, steps, cfg, params, batch, hp, device):
+    """``loss_and_grads`` and one ``make_train_step`` step from ``params`` on
+    ``device``; everything returned on the CPU."""
+    from repro_torch.train import adamw_init
+
+    p = to_device(M, params, device)
+    b = {k: v.to(device) for k, v in batch.items()}
+    loss, grads = steps.loss_and_grads(p, b, cfg)
+    p, _, met = steps.make_train_step(cfg, hp)(p, adamw_init(p, cfg.opt_state_dtype), b)
+    cpu = torch.device("cpu")
+    return loss.cpu(), to_device(M, grads, cpu), to_device(M, p, cpu), {k: v.cpu() for k, v in met.items()}
+
+
+def updated_params_err(torch, M, got, want, grads, lr, tol):
+    """Updated params, card against CPU, per leaf within ``tol`` x its
+    largest, except where the CPU's gradient lies within ``tol`` of 0
+    (relative to its leaf's largest): AdamW's first step moves a weight by
+    about lr g / |g|, so where the two read the sign of a near-zero gradient
+    apart the weight lands 2 lr apart, which such an element is allowed.
+    Returns (the largest relative error elsewhere, the elements allowed 2 lr)."""
+    worst, loose = 0.0, 0
+    for g, w, gr in zip(M.tree_leaves(got), M.tree_leaves(want), M.tree_leaves(grads)):
+        diff = (g.double() - w.double()).abs()
+        scale = float(w.double().abs().max().clamp_min(1e-30))
+        near0 = gr.double().abs() <= tol * gr.double().abs().max()
+        bound = tol * scale + 2 * lr * near0.double()
+        check(bool((diff <= bound).all()), f"an updated parameter lies {float((diff - bound).max()):.3g} past its "
+              "bound")
+        worst = max(worst, float((diff * ~near0).max()) / scale)
+        loose += int(near0.sum())
+    return worst, loose
+
+
+def train_card_vs_cpu(torch, M, configs, steps, arch, dtype, seed):
+    """``arch``'s reduced config at ``dtype`` activations, one train step on
+    the card against the same step on the CPU from the same weights and
+    batch: loss, grad_norm, lr and the gradients within MODEL_TOL (fp32:
+    max|diff| / max|ref| per leaf; bf16: ||diff|| / ||ref|| over the whole
+    gradient, the per-leaf figures recorded beside it), the updated params
+    as ``updated_params_err`` allows.  Returns the errors."""
+    from repro_torch.launch import serve
+    from repro_torch.train import OptHParams
+
+    hp = OptHParams(**TRAIN_HP)
+    cfg = dataclasses.replace(configs.get_reduced_config(arch), activation_dtype=dtype, ce_chunk=TRAIN_CE_CHUNK)
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    batch = serve.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cpu", seed)
+    want = train_twin_step(torch, M, steps, cfg, params, batch, hp, torch.device("cpu"))
+    got = train_twin_step(torch, M, steps, cfg, params, batch, hp, torch.device("cuda"))
+    tol = MODEL_TOL[dtype]
+    errs = {name: rel_err(got[3][name], want[3][name]) for name in ("loss", "grad_norm", "lr")}
+    errs["loss_and_grads_loss"] = rel_err(got[0], want[0])
+    diffs = [(g.double() - w.double(), w.double()) for g, w in zip(M.tree_leaves(got[1]), M.tree_leaves(want[1]))]
+    errs["grads_max"] = max(float(d.abs().max() / w.abs().max().clamp_min(1e-30)) for d, w in diffs)
+    errs["grads_leaf_l2"] = max(float(d.norm() / w.norm().clamp_min(1e-30)) for d, w in diffs)
+    errs["grads_l2"] = float(sum(d.square().sum() for d, _ in diffs).sqrt()
+                             / sum(w.square().sum() for _, w in diffs).sqrt())
+    # fp32: every gradient element within tol of its leaf's largest.  bf16: the whole
+    # gradient's ||diff|| / ||ref||; per leaf, bf16 gradients are too ill-conditioned
+    # for tol: on the CPU alone, weights one fp32 ulp apart move a qk-norm scale's
+    # past it (tests/test_torch_train_remat.py)
+    checked = [*(n for n in errs if not n.startswith("grads")), "grads_max" if dtype == "float32" else "grads_l2"]
+    for what in checked:
+        check(errs[what] <= tol, f"{arch} {dtype}: {what} on the card {errs[what]:.3g} from the CPU's (> {tol})")
+    errs["params"], errs["params_near_zero_grads"] = updated_params_err(
+        torch, M, got[2], want[2], want[1], float(want[3]["lr"]), tol)
+    check(errs["params"] <= tol, f"{arch} {dtype}: updated params {errs['params']:.3g} (> {tol})")
+    return errs
+
+
+def model_train_reduced(torch, M, configs, steps, seed):
+    """(a): ``train_card_vs_cpu`` for each arch at fp32 and bf16 activations."""
+    return {f"{arch}/{dtype}": train_card_vs_cpu(torch, M, configs, steps, arch, dtype, seed)
+            for arch in MODEL_ARCHS for dtype in ("float32", "bfloat16")}
+
+
+def checkpoint_params(torch, M, configs, ckpt_dir, step):
+    """xlstm-125m's params of ``ckpt_dir``'s checkpoint ``step``, on the CPU."""
+    from repro_torch.train import adamw_init, restore_checkpoint
+
+    cfg = configs.get_config("xlstm_125m")
+    like_p = M.abstract_params(cfg)
+    tree, _, extra = restore_checkpoint(str(ckpt_dir), {"params": like_p, "opt": adamw_init(like_p)}, step=step,
+                                        device="cpu")
+    check(extra == {"data_cursor": step}, f"checkpoint {step} holds data cursor {extra}")
+    return tree["params"]
+
+
+def model_train_xlstm(torch, M, configs, train):
+    """(b): xlstm-125m uncut through ``launch/train.main`` with --dedup:
+    XLSTM_STEPS uninterrupted steps (a checkpoint every 2), then half of
+    them in a second directory and a resume to XLSTM_STEPS; final losses
+    and step-4 params within RESUME_TOL."""
+    import contextlib
+    import io
+
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    check(M.count_params_analytic(configs.get_config("xlstm_125m")) == XLSTM_PARAMS,
+          "xlstm-125m's parameter count moved")
+    runs = {}
+    for name, ckpt, n in (("whole", "whole", XLSTM_STEPS), ("first_half", "split", XLSTM_STEPS // 2),
+                          ("resumed", "split", XLSTM_STEPS)):
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            loss = train.main([*XLSTM_TRAIN, "--steps", str(n), "--ckpt-dir", str(root / ckpt)])
+        torch.cuda.synchronize()
+        runs[name] = {"loss": loss, "wall_s": time.perf_counter() - t0, "steps": n,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(), "log": buf.getvalue().splitlines()}
+        check(math.isfinite(loss), f"xlstm-125m's {name} run: loss {loss}")
+    check(any(line.startswith("resumed from step 2 (data cursor 2)") for line in runs["resumed"]["log"]),
+          "the second xlstm-125m run did not resume from step 2")
+    for name, run in runs.items():
+        check(any(line.startswith("dedup: kept ") for line in run["log"]), f"xlstm-125m's {name} run: no dedup line")
+    loss_err = abs(runs["resumed"]["loss"] - runs["whole"]["loss"]) / abs(runs["whole"]["loss"])
+    check(loss_err <= RESUME_TOL, f"xlstm-125m resumed: loss {loss_err:.3g} from uninterrupted (> {RESUME_TOL})")
+    whole = checkpoint_params(torch, M, configs, root / "whole", XLSTM_STEPS)
+    split = checkpoint_params(torch, M, configs, root / "split", XLSTM_STEPS)
+    param_err = max(rel_err(a, b) for a, b in zip(M.tree_leaves(split), M.tree_leaves(whole)))
+    check(param_err <= RESUME_TOL, f"xlstm-125m resumed: step-{XLSTM_STEPS} params {param_err:.3g} from "
+          f"uninterrupted (> {RESUME_TOL})")
+    first = checkpoint_params(torch, M, configs, root / "split", XLSTM_STEPS // 2)
+    check(max(rel_err(a, b) for a, b in zip(M.tree_leaves(split), M.tree_leaves(first))) > 0,
+          "xlstm-125m's params did not move from step 2 to step 4")
+    del whole, split, first
+    shutil.rmtree(root, ignore_errors=True)
+    return {"params": XLSTM_PARAMS, "argv": XLSTM_TRAIN, "runs": runs, "resume_loss_rel": loss_err,
+            "resume_params_rel": param_err, "tol": RESUME_TOL,
+            "step_s": runs["whole"]["wall_s"] / XLSTM_STEPS,
+            "tokens_per_s": 8 * 1024 * XLSTM_STEPS / runs["whole"]["wall_s"]}
+
+
+def model_train_full(torch, M, configs, steps, seed):
+    """(c): recurrentgemma-2b uncut, RG_STEPS ``make_train_step`` steps at
+    RG_BATCH x RG_SEQ, each split by CUDA events into forward (the loss),
+    backward (the gradients and their bf16 cast) and the optimizer, with
+    tokens/s and peak device memory; loss and grad_norm finite, the params
+    moved."""
+    from repro_torch.launch import serve
+    from repro_torch.train import OptHParams, adamw_init
+
+    cfg = configs.get_config(RG_ARCH)
+    check(cfg.remat and cfg.remat_mode == "block" and cfg.flash_remat, f"{RG_ARCH}: not remat='block' + flash_remat")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = RG_PARAMS * 16 + RG_HEADROOM
+    check(free >= need, f"{RG_ARCH}: the card has {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; training needs "
+          f"{need / 1e9:.1f} GB ({device_memory(torch)})")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    check(n_params == RG_PARAMS, f"{RG_ARCH} has {n_params} parameters, not {RG_PARAMS}")
+    opt = adamw_init(params, cfg.opt_state_dtype)
+    watch = [t.view(-1)[:4096].clone() for t in M.tree_leaves(params)]
+    batch = serve.make_batch(cfg, RG_BATCH, RG_SEQ, "cuda", seed)
+    step = steps.make_train_step(cfg, OptHParams(lr=3e-4, warmup_steps=1, total_steps=RG_STEPS))
+
+    marks = []
+    real_loss, real_update = steps.forward_loss, steps.adamw_update
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def timed_loss(*a, **kw):
+        mark("start")
+        out = real_loss(*a, **kw)
+        mark("forward")
+        return out
+
+    def timed_update(*a, **kw):
+        mark("backward")
+        out = real_update(*a, **kw)
+        mark("optimizer")
+        return out
+
+    steps.forward_loss, steps.adamw_update = timed_loss, timed_update
+    rows = []
+    try:
+        for i in range(RG_STEPS):
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ev = dict(marks)
+            row = {"step": i + 1, "wall_ms": wall * 1e3,
+                   "forward_ms": ev["start"].elapsed_time(ev["forward"]),
+                   "backward_ms": ev["forward"].elapsed_time(ev["backward"]),
+                   "optimizer_ms": ev["backward"].elapsed_time(ev["optimizer"]),
+                   "tokens_per_s": RG_BATCH * RG_SEQ / wall,
+                   "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]), "lr": float(met["lr"]),
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+                  f"{RG_ARCH} step {i + 1}: loss {row['loss']}, grad_norm {row['grad_norm']}")
+            rows.append(row)
+    finally:
+        steps.forward_loss, steps.adamw_update = real_loss, real_update
+    moved = sum(int(not torch.equal(a.view(-1)[:4096], b)) for a, b in zip(M.tree_leaves(params), watch))
+    check(moved > 0, f"{RG_ARCH}: no parameter moved in {RG_STEPS} steps")
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params, "batch": RG_BATCH, "seq": RG_SEQ,
+           "activation_dtype": cfg.activation_dtype, "remat": cfg.remat_mode, "flash_remat": cfg.flash_remat,
+           "vocab": cfg.vocab, "ce_chunk": cfg.ce_chunk, "window": cfg.groups[0][0][2].window,
+           "steps": rows, "leaves_moved": moved, "leaves": len(watch),
+           "state_bytes": n_params * 4 * 3, "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt, batch, watch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def device_memory(torch):
+    """The card's memory as this process and ``nvidia-smi`` see it."""
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return {"free": free, "total": total, "reserved": torch.cuda.memory_reserved(),
+            "allocated": torch.cuda.memory_allocated(), "compute_apps": apps}
+
+
+def saved_bytes(torch, fn, params=()):
+    """``fn()`` under ``saved_tensors_hooks``: (its result, bytes saved for
+    backward outside the storage of ``params``, their shapes)."""
+    storages = {p.untyped_storage().data_ptr() for p in params}
+    total, shapes = [0], []
+
+    def pack(t):
+        if t.untyped_storage().data_ptr() not in storages:
+            total[0] += t.numel() * t.element_size()
+            shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, total[0], shapes
+
+
+def model_train_backwards(torch, configs, seed):
+    """(d): the two rematerialized backwards at recurrentgemma-2b's widths,
+    fp32, against the materialized ones on the card: the streaming CE's
+    gradients (x, the tied table) against the dense ``log_softmax``'s, and
+    ``_flash``'s (q, k, v) against ``attention_plain``'s at its local
+    attention shape; each with its bytes saved for backward (parameters
+    excluded) and its time (forward + backward, CUDA events)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    cfg = configs.get_config(RG_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    b, s = CE_TOKENS
+    x = randn(b, s, cfg.d_model).requires_grad_(True)
+    table = randn(cfg.vocab, cfg.d_model, std=0.02).requires_grad_(True)
+    labels = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda", dtype=torch.int32)
+
+    def blocked():
+        return L.blocked_cross_entropy(x, labels, table=table, chunk=cfg.ce_chunk, logit_softcap=cfg.logit_softcap)
+
+    def dense():
+        logits = L.softcap(torch.matmul(x, table.T), cfg.logit_softcap)
+        return -torch.gather(torch.log_softmax(logits, -1), -1, labels.long()[..., None]).mean()
+
+    ce = {"tokens": b * s, "vocab": cfg.vocab, "chunk": cfg.ce_chunk, "chunks": -(-cfg.vocab // cfg.ce_chunk)}
+    grads = {}
+    for name, fn in (("blocked", blocked), ("dense", dense)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, nbytes, _ = saved_bytes(torch, fn, params=[table])
+        grads[name] = torch.autograd.grad(loss, [x, table])
+        end.record()
+        torch.cuda.synchronize()
+        ce[name] = {"loss": float(loss.detach()), "saved_bytes": nbytes, "ms": start.elapsed_time(end),
+                    "peak_bytes_over_inputs": torch.cuda.max_memory_allocated() - base}
+        del loss
+    ce["rel_err"] = {n: rel_err(g, w) for n, g, w in zip(("x", "table"), grads["blocked"], grads["dense"])}
+    ce["loss_rel_err"] = abs(ce["blocked"]["loss"] - ce["dense"]["loss"]) / abs(ce["dense"]["loss"])
+    for what, err in [*ce["rel_err"].items(), ("loss", ce["loss_rel_err"])]:
+        check(err <= BWD_TOL, f"the streaming CE's {what} gradient at {cfg.vocab} vocab: {err:.3g} (> {BWD_TOL})")
+    # x, the labels and the online softmax's (m, z): no (B, S, chunk) logits
+    ce["saved_bytes_allowed"] = x.numel() * x.element_size() + labels.numel() * labels.element_size() + 2 * b * s * 4
+    check(ce["blocked"]["saved_bytes"] <= ce["saved_bytes_allowed"],
+          f"the streaming CE saved {ce['blocked']['saved_bytes']} bytes for backward, more than x, the labels "
+          f"and (m, z): {ce['saved_bytes_allowed']}")
+    out["blocked_cross_entropy"] = ce
+    del x, table, labels, grads
+
+    blk = cfg.groups[0][0][2]
+    kvh, g, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim_
+    bb, ss = RG_BATCH, RG_SEQ
+    qkv = [randn(bb, ss, kvh, g, dh).requires_grad_(True), randn(bb, ss, kvh, dh).requires_grad_(True),
+           randn(bb, ss, kvh, dh).requires_grad_(True)]
+    do = randn(bb, ss, kvh, g, dh)
+    pos = torch.arange(ss, dtype=torch.int32, device="cuda")
+    qc, kc = min(cfg.q_chunk, ss), min(cfg.k_chunk, ss)
+    kw = dict(causal=True, window=blk.window)
+    fl = {"shape": [bb, ss, kvh, g, dh], "window": blk.window, "q_chunk": qc, "k_chunk": kc}
+    grads = {}
+    for name, fn in (("flash_remat", lambda: A._flash(*qkv, pos, pos, q_chunk=qc, k_chunk=kc, remat_kv=True, **kw)),
+                     ("plain", lambda: A.attention_plain(*qkv, pos, pos, **kw))):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o, nbytes, shapes = saved_bytes(torch, fn)
+        grads[name] = torch.autograd.grad(o, qkv, do)
+        end.record()
+        torch.cuda.synchronize()
+        fl[name] = {"saved_bytes": nbytes, "ms": start.elapsed_time(end),
+                    "score_blocks_saved": sum(1 for sh in shapes if sh[-2:] == (qc, kc))}
+        del o
+    fl["rel_err"] = {n: rel_err(a, w) for n, a, w in zip("qkv", grads["flash_remat"], grads["plain"])}
+    for what, err in fl["rel_err"].items():
+        check(err <= BWD_TOL, f"_flash's d{what} at {RG_ARCH}'s attention shape: {err:.3g} (> {BWD_TOL})")
+    check(fl["flash_remat"]["score_blocks_saved"] == 0, "_flash with remat_kv saved a score block")
+    out["flash"] = fl
+    del qkv, do, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_train(torch, seed):
+    """Phase 12, the training path, with the launch counters from 0: (a)
+    all ten archs' reduced configs, one train step on the card against the
+    CPU; (b) xlstm-125m uncut through ``launch/train`` with --dedup, a
+    checkpoint, and a resume; (c) recurrentgemma-2b uncut, RG_STEPS steps
+    split into forward, backward and optimizer; (d) the two rematerialized
+    backwards at recurrentgemma's widths.  Only (b)'s dedup may launch a
+    kernel: K1 (the join's result-size estimate) and K2's fused pairs step."""
+    from repro_torch import configs
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.train import steps
+
+    mods = (distance_tile, dense_tile, flash_attention)
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "model_train", "card": smi_name_limit(), "device_memory_at_start": device_memory(torch),
+           "tolerances": {"card_vs_cpu": MODEL_TOL, "resume": RESUME_TOL, "backward_vs_materialized": BWD_TOL}}
+    parts = (("reduced", lambda: model_train_reduced(torch, M, configs, steps, seed)),
+             ("xlstm", lambda: model_train_xlstm(torch, M, configs, train)),
+             ("full", lambda: model_train_full(torch, M, configs, steps, seed)),
+             ("backwards", lambda: model_train_backwards(torch, configs, seed)))
+    for name, run in parts:
+        t0 = time.perf_counter()
+        rec[name] = run()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    launched = {k for k, v in launches.items() if v}
+    check(launched <= {"tile_pair_distance", PAIRS[0]} and launches[PAIRS[0]] > 0,
+          f"the training path launched {({k: v for k, v in launches.items() if v})}: not the dedup's K1 estimate "
+          "and K2 fused pairs step alone")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return launches
+
+
 def ranges_on(events, names, device_type):
     """The profiler ranges named in ``names`` on one side: with CUDA activity
     the profiler mirrors each host range (CPU) on the device timeline
@@ -3778,6 +4205,8 @@ def main() -> int:
     parser.add_argument("--fused-dir", type=Path, default=None, help="phase 9's exchange directory")
     parser.add_argument("--model-serve-only", action="store_true",
                         help="run phase 11 (the model serving path) alone, and print no kernels line")
+    parser.add_argument("--model-train-only", action="store_true",
+                        help="run phase 12 (the training path) alone, and print no kernels line")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3796,6 +4225,10 @@ def main() -> int:
         return fused_rank_main(args.fused_rank, args.fused_dir)
     if args.model_serve_only:
         phase_model_serve(torch, args.seed)
+        return 0
+    if args.model_train_only:
+        print(smi_name_limit(), flush=True)
+        phase_model_train(torch, args.seed)
         return 0
 
     t_start = time.perf_counter()
@@ -3907,6 +4340,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     model_serve = phase_model_serve(torch, args.seed)
+    # the training path: its own counters, from 0
+    model_train = phase_model_train(torch, args.seed)
 
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
@@ -3945,6 +4380,7 @@ def main() -> int:
     rows.append(attention_row(attn, serving, distributed, fused_ring, downstream))
     for row in rows:
         row["model_serve_launches"] = model_serve[row["name"]]   # phase 11 checks it is 0
+        row["model_train_launches"] = model_train[row["name"]]   # phase 12: the dedup's K1 and K2 steps only
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

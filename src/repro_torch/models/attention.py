@@ -65,35 +65,37 @@ def _pad_seq(t, pad):
     return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], dim=1)
 
 
-def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
-           q_chunk: int, k_chunk: int, remat_kv: bool = True,
-           scale: Optional[float] = None):
-    """Online-softmax attention.
-
-    q: (B, Sq, KV, G, dh)   k, v: (B, Sk, KV, dh)
-    qpos: (Sq,) kpos: (Sk,) absolute positions (mask built on the fly).
-    Returns (B, Sq, KV, G, dv) in q.dtype.  Padded queries sit at position
-    -10**9 and padded keys at +10**9, as in the reference.  ``remat_kv`` is
-    the reference's backward switch; there is no backward here.
-    """
-    del remat_kv
-    b, sq, kvh, g, dh = q.shape
-    sk = k.shape[1]
-    dv = v.shape[-1]            # may differ from dh (MLA)
-    if scale is None:
-        scale = 1.0 / np.sqrt(dh)
-    scale = float(scale)
+def _flash_layout(q, k, v, qpos, kpos, q_chunk, k_chunk):
+    """Pad q / k / v to whole chunks: (qp, kp, vp, qpos_p, kpos_p, qc, kc).
+    Padded queries sit at position -10**9 and padded keys at +10**9, as in
+    the reference."""
+    sq, sk = q.shape[1], k.shape[1]
     qc = min(q_chunk, sq)
     kc = min(k_chunk, sk)
     pad_q = (-sq) % qc
     pad_k = (-sk) % kc
-    qp = _pad_seq(q, pad_q)
-    kp = _pad_seq(k, pad_k)
-    vp = _pad_seq(v, pad_k)
     qpos_p = torch.cat([qpos, qpos.new_full((pad_q,), -(10**9))])
     kpos_p = torch.cat([kpos, kpos.new_full((pad_k,), 10**9)])
+    return (_pad_seq(q, pad_q), _pad_seq(k, pad_k), _pad_seq(v, pad_k), qpos_p, kpos_p, qc, kc)
+
+
+def _scores(qb, kb, qposb, kposb, causal, window, scale):
+    """One (q chunk, k chunk) block's fp32 scores (B, KV, G, qc, kc), masked
+    keys at NEG_INF, and the mask (qc, kc)."""
+    mask = _mask(qposb, kposb, causal, window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+    return s.masked_fill(~mask, NEG_INF), mask
+
+
+def _flash_forward(q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, scale):
+    """The online softmax over key chunks inside a loop over query chunks.
+    Returns the fp32 output (B, Sq, KV, G, dv) and the final running max
+    ``m`` and sum ``l`` (B, KV, G, Sq_padded)."""
+    b, sq, kvh, g, _ = q.shape
+    dv = v.shape[-1]            # may differ from dh (MLA)
+    qp, kp, vp, qpos_p, kpos_p, qc, kc = _flash_layout(q, k, v, qpos, kpos, q_chunk, k_chunk)
     nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
-    outs = []
+    outs, ms, ls = [], [], []
     for qi in range(nq):
         qb = qp[:, qi * qc:(qi + 1) * qc].float()         # (B, qc, KV, G, dh)
         qposb = qpos_p[qi * qc:(qi + 1) * qc]
@@ -103,9 +105,7 @@ def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
         for ki in range(nk):
             kb = kp[:, ki * kc:(ki + 1) * kc].float()     # (B, kc, KV, dh)
             vb = vp[:, ki * kc:(ki + 1) * kc].float()
-            kposb = kpos_p[ki * kc:(ki + 1) * kc]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale   # (B, KV, G, qc, kc)
-            s = s.masked_fill(~_mask(qposb, kposb, causal, window), NEG_INF)
+            s, _ = _scores(qb, kb, qposb, kpos_p[ki * kc:(ki + 1) * kc], causal, window, scale)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -115,8 +115,79 @@ def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-37)
         outs.append(out.permute(0, 3, 1, 2, 4))           # (B, qc, KV, G, dv)
-    out = torch.cat(outs, dim=1)
-    return out[:, :sq].to(q.dtype)
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1)[:, :sq], torch.cat(ms, dim=-1), torch.cat(ls, dim=-1)
+
+
+class _FlashRemat(torch.autograd.Function):
+    """``_flash`` whose backward recomputes each score block instead of
+    saving it (the reference's ``jax.checkpoint(kv_step)``): saved for
+    backward are q, k, v, the positions, the fp32 output and the softmax's
+    final (m, l) -- nothing of shape (..., qc, kc).  The backward is the
+    flash-attention one: per block p = exp(s - m) / l, dV += pᵀ dO,
+    dS = p (dO Vᵀ - rowsum(dO o)), zero where the mask hid the key (a masked
+    score is a constant), dQ += dS K scale, dK += dSᵀ Q scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, scale):
+        out, m, l = _flash_forward(q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, scale)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, m, l)
+        ctx.cfg = (causal, window, q_chunk, k_chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, m, l = ctx.saved_tensors
+        causal, window, q_chunk, k_chunk, scale = ctx.cfg
+        sq, sk = q.shape[1], k.shape[1]
+        qp, kp, vp, qpos_p, kpos_p, qc, kc = _flash_layout(q, k, v, qpos, kpos, q_chunk, k_chunk)
+        nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
+        do_p = _pad_seq(dout.float(), qp.shape[1] - sq)          # (B, Sq_p, KV, G, dv)
+        delta = _pad_seq((dout.float() * out).sum(dim=-1), qp.shape[1] - sq).permute(0, 2, 3, 1)
+        inv_l = 1.0 / torch.clamp_min(l, 1e-37)                   # (B, KV, G, Sq_p)
+        dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(kp.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(vp.shape, dtype=torch.float32, device=q.device)
+        for qi in range(nq):
+            qs = slice(qi * qc, (qi + 1) * qc)
+            qb = qp[:, qs].float()
+            dob = do_p[:, qs].permute(0, 2, 3, 1, 4)              # (B, KV, G, qc, dv)
+            for ki in range(nk):
+                ks = slice(ki * kc, (ki + 1) * kc)
+                kb, vb = kp[:, ks].float(), vp[:, ks].float()
+                s, mask = _scores(qb, kb, qpos_p[qs], kpos_p[ks], causal, window, scale)
+                p = torch.exp(s - m[..., qs, None]) * inv_l[..., qs, None]
+                dv[:, ks] += torch.einsum("bkgqs,bkgqd->bskd", p, dob)
+                ds = p * (torch.einsum("bkgqd,bskd->bkgqs", dob, vb) - delta[..., qs, None])
+                ds = ds.masked_fill(~mask, 0.0) * scale
+                dq[:, qs] += torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
+                dk[:, ks] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+        return (dq[:, :sq].to(q.dtype), dk[:, :sk].to(k.dtype), dv[:, :sk].to(v.dtype),
+                None, None, None, None, None, None, None)
+
+
+def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
+           q_chunk: int, k_chunk: int, remat_kv: bool = True,
+           scale: Optional[float] = None):
+    """Online-softmax attention.
+
+    q: (B, Sq, KV, G, dh)   k, v: (B, Sk, KV, dh)
+    qpos: (Sq,) kpos: (Sk,) absolute positions (mask built on the fly).
+    Returns (B, Sq, KV, G, dv) in q.dtype.  Padded queries sit at position
+    -10**9 and padded keys at +10**9, as in the reference.  ``remat_kv``,
+    as in the reference, decides the backward: set, no score block is
+    saved and the backward recomputes each (``_FlashRemat``); unset,
+    autograd saves every block's (B, KV, G, qc, kc) probabilities.
+    """
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    args = (q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, float(scale))
+    if remat_kv and torch.is_grad_enabled():
+        out = _FlashRemat.apply(*args)
+    else:
+        out = _flash_forward(*args)[0]
+    return out.to(q.dtype)
 
 
 def attention_plain(q, k, v, qpos, kpos, *, causal: bool, window: int,

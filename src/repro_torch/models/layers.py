@@ -194,6 +194,115 @@ def softcap(x, cap: float):
     return x
 
 
+def _ce_chunks(v: int, chunk: int):
+    """(chunk, [(start, valid_from)]): vocab chunks of ``chunk`` columns; a
+    vocab that is not a multiple gets an overlapping last chunk whose
+    already-seen columns (below ``valid_from``) are masked."""
+    chunk = min(chunk, v)
+    nc = -(-v // chunk)
+    starts = [i * chunk for i in range(nc)]
+    valid_from = list(starts)
+    if starts[-1] + chunk > v:       # overlap the last chunk; mask re-seen cols
+        starts[-1] = v - chunk
+    return chunk, list(zip(starts, valid_from))
+
+
+def _ce_logits(xf, weight, bias, tied, start, vfrom, chunk, logit_softcap):
+    """One chunk's fp32 logits (B, S, chunk) after the softcap, re-seen
+    columns at -inf; and the tanh of the softcap (None without one)."""
+    if tied:
+        lc = torch.matmul(xf, weight[start:start + chunk].float().T)
+    else:
+        lc = torch.matmul(xf, weight[:, start:start + chunk].float())
+    if bias is not None:
+        lc = lc + bias[start:start + chunk].float()
+    th = None
+    if logit_softcap and logit_softcap > 0:
+        th = torch.tanh(lc / logit_softcap)
+        lc = th * logit_softcap
+    gcol = start + torch.arange(chunk, device=xf.device)
+    seen = (gcol >= vfrom)[None, None, :]
+    return lc.masked_fill(~seen, -torch.inf), th, seen
+
+
+class _BlockedCE(torch.autograd.Function):
+    """The streaming CE with a backward that walks the vocab chunks again.
+
+    Forward keeps only the running max ``m`` and sum ``z`` (B, S) of the
+    online softmax; backward recomputes each chunk's logits and takes
+    d loss / d logits = (softmax - onehot) * mask / count from them, so
+    what is saved for backward is x, the labels and (m, z) whatever the
+    number of chunks (the reference's ``jax.checkpoint`` over its scan
+    body does the same)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, labels, tied, chunk, logit_softcap):
+        b, s, _ = x.shape
+        dev = x.device
+        v = weight.shape[0] if tied else weight.shape[1]
+        chunk, spans = _ce_chunks(v, chunk)
+        # masked (negative) labels pick index 0 -- the -inf never reaches the
+        # loss because the mask zeroes those positions (avoid 0 * inf = NaN)
+        lab = torch.where(labels >= 0, labels, torch.zeros_like(labels)).long()
+        xf = x.float()
+        m = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
+        z = torch.zeros((b, s), dtype=torch.float32, device=dev)
+        picked = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
+        for start, vfrom in spans:
+            lc, _, _ = _ce_logits(xf, weight, bias, tied, start, vfrom, chunk, logit_softcap)
+            m_new = torch.maximum(m, lc.amax(dim=-1))
+            z = z * torch.exp(m - m_new) + torch.exp(lc - m_new[..., None]).sum(dim=-1)
+            m = m_new
+            local = lab - start
+            in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
+            safe = local.clamp(0, chunk - 1)
+            got = torch.gather(lc, -1, safe[..., None])[..., 0]
+            picked = torch.where(in_chunk & (got > -torch.inf), got, picked)
+        ll = picked - m - torch.log(torch.clamp_min(z, 1e-37))
+        mask = (labels >= 0).float()
+        count = torch.clamp_min(mask.sum(), 1.0)
+        ctx.save_for_backward(x, weight, bias, labels, m, z)
+        ctx.cfg = (tied, chunk, spans, logit_softcap)
+        return -(ll * mask).sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, labels, m, z = ctx.saved_tensors
+        tied, chunk, spans, logit_softcap = ctx.cfg
+        xf = x.float()
+        lab = torch.where(labels >= 0, labels, torch.zeros_like(labels)).long()
+        mask = (labels >= 0).float()
+        # d loss / d logit = (softmax - onehot) * w, w = g * mask / count per position
+        w = (g * mask / torch.clamp_min(mask.sum(), 1.0))[..., None]
+        inv_z = 1.0 / torch.clamp_min(z, 1e-37)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = torch.zeros_like(xf) if need_x else None
+        dw = torch.zeros_like(weight) if need_w else None
+        db = torch.zeros_like(bias) if need_b else None
+        for start, vfrom in spans:
+            lc, th, seen = _ce_logits(xf, weight, bias, tied, start, vfrom, chunk, logit_softcap)
+            d = torch.exp(lc - m[..., None]) * inv_z[..., None]        # softmax, 0 at re-seen columns
+            local = lab - start
+            in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
+            onehot = torch.zeros_like(d).scatter_(-1, local.clamp(0, chunk - 1)[..., None],
+                                                  in_chunk[..., None].float())
+            d = (d - onehot) * w
+            if th is not None:
+                d = d * (1.0 - th * th)
+            d = d.masked_fill(~seen, 0.0)
+            if need_x:
+                wc = weight[start:start + chunk].float() if tied else weight[:, start:start + chunk].float().T
+                dx += torch.matmul(d, wc)
+            if need_w:
+                if tied:
+                    dw[start:start + chunk] += torch.einsum("bsc,bsd->cd", d, xf).to(dw.dtype)
+                else:
+                    dw[:, start:start + chunk] += torch.einsum("bsd,bsc->dc", xf, d).to(dw.dtype)
+            if need_b:
+                db[start:start + chunk] += d.sum(dim=(0, 1)).to(db.dtype)
+        return (dx.to(x.dtype) if need_x else None), dw, db, None, None, None, None
+
+
 def blocked_cross_entropy(
     x, labels, *, table=None, w=None, bias=None, chunk: int = 8192,
     logit_softcap: float = 0.0,
@@ -201,49 +310,14 @@ def blocked_cross_entropy(
     """Streaming CE loss over vocab chunks -- logits are NEVER materialized.
 
     Computes max / logsumexp / label logit chunk by chunk (online softmax
-    over the vocab axis), so peak memory is (B, S, chunk).  A vocab that is
-    not a multiple of ``chunk`` gets an overlapping last chunk whose
-    already-seen columns are masked (first-seen masking).  Forward only.
+    over the vocab axis), so peak memory is (B, S, chunk), and the backward
+    recomputes each chunk's logits (``_BlockedCE``) rather than saving
+    them.  A vocab that is not a multiple of ``chunk`` gets an overlapping
+    last chunk whose already-seen columns are masked (first-seen masking).
 
     x: (B, S, D); labels: (B, S) int (negative = masked out).
     table: (V, D) tied embedding, or w: (D, V) untied unembed matrix.
     Returns mean loss over unmasked positions (fp32 scalar).
     """
-    v = table.shape[0] if table is not None else w.shape[1]
-    chunk = min(chunk, v)
-    nc = -(-v // chunk)
-    starts = [i * chunk for i in range(nc)]
-    valid_from = list(starts)
-    if starts[-1] + chunk > v:       # overlap the last chunk; mask re-seen cols
-        starts[-1] = v - chunk
-
-    b, s, _ = x.shape
-    dev = x.device
-    # masked (negative) labels pick index 0 -- the -inf never reaches the
-    # loss because the mask zeroes those positions (avoid 0 * inf = NaN)
-    lab = torch.where(labels >= 0, labels, torch.zeros_like(labels)).long()
-    xf = x.float()
-    m = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
-    z = torch.zeros((b, s), dtype=torch.float32, device=dev)
-    picked = torch.full((b, s), -torch.inf, dtype=torch.float32, device=dev)
-    for start, vfrom in zip(starts, valid_from):
-        if table is not None:
-            lc = torch.matmul(xf, table[start:start + chunk].float().T)
-        else:
-            lc = torch.matmul(xf, w[:, start:start + chunk].float())
-        if bias is not None:
-            lc = lc + bias[start:start + chunk].float()
-        lc = softcap(lc, logit_softcap)
-        gcol = start + torch.arange(chunk, device=dev)
-        lc = lc.masked_fill(~(gcol >= vfrom)[None, None, :], -torch.inf)
-        m_new = torch.maximum(m, lc.amax(dim=-1))
-        z = z * torch.exp(m - m_new) + torch.exp(lc - m_new[..., None]).sum(dim=-1)
-        m = m_new
-        local = lab - start
-        in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
-        safe = local.clamp(0, chunk - 1)
-        got = torch.gather(lc, -1, safe[..., None])[..., 0]
-        picked = torch.where(in_chunk & (got > -torch.inf), got, picked)
-    ll = picked - m - torch.log(torch.clamp_min(z, 1e-37))
-    mask = (labels >= 0).float()
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    tied = table is not None
+    return _BlockedCE.apply(x, table if tied else w, bias, labels, tied, chunk, logit_softcap)

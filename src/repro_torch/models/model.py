@@ -5,6 +5,9 @@ Each layer group is ``(pattern, repeat)``; the parameters of each pattern
 position are stacked along a leading repeat axis, as in the reference,
 which ``lax.scan``s over it.  The port loops over it in Python, so a
 converted reference tree (``params_from_numpy``) is a leaf-for-leaf copy.
+Under autograd the blocks are rematerialized as ``cfg.remat`` /
+``remat_mode`` say (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``); serving runs without a graph.
 Caches keep the reference's structure too: a list per group, of tuples per
 pattern position, of dicts of stacked ``(repeat, ...)`` tensors.
 
@@ -25,6 +28,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.snapshot import resolve_device
 from repro_torch.models import blocks as B
@@ -122,9 +126,9 @@ def params_from_numpy(tree, device="cuda"):
     dev = resolve_device(device)
 
     def leaf(a):
-        a = np.ascontiguousarray(a)
-        if not a.flags.writeable:   # torch.from_numpy wants a writable buffer
-            a = a.copy()
+        a = np.asarray(a)
+        if not (a.flags.c_contiguous and a.flags.writeable):   # torch.from_numpy wants a
+            a = np.array(a, order="C")                          # writable buffer; 0-d stays 0-d
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
         return torch.from_numpy(a).to(dev)
@@ -135,19 +139,61 @@ def params_from_numpy(tree, device="cuda"):
 # ------------------------------------------------------------- forward -----
 
 
+def _unstack(tree, n):
+    """The ``n`` slices along the leading axis of a stacked tree, each leaf
+    ``unbind``-ed once: under autograd the backward of ``unbind`` is one
+    ``stack``, where ``a[r]`` for each r would write a zero-filled tensor
+    the size of the whole stacked leaf per repeat."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(p[r] for p in parts) for r in range(n)]
+    return list(tree.unbind(0))
+
+
+def _checkpointed(fn):
+    """``fn`` rematerialized in the backward (the reference's ``jax.checkpoint``)."""
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def _run_groups(groups_params, x, positions, cfg, group_cfgs, *, memory=None,
                 want_cache=False, cache_len=0):
-    """Apply all layer groups; optionally collect decode caches."""
+    """Apply all layer groups; optionally collect decode caches.
+
+    Under autograd with ``cfg.remat``, ``remat_mode`` picks what is
+    recomputed in the backward, as in the reference: "block" each block,
+    "pattern" each repeat of the pattern, "double" both, nested.
+    """
+    remat = cfg.remat and torch.is_grad_enabled()
+    per_block = remat and cfg.remat_mode in ("block", "double")
+    outer = remat and cfg.remat_mode in ("pattern", "double")
     caches = []
     for gp, (pattern, repeat) in zip(groups_params, group_cfgs):
-        per_pos = [[] for _ in pattern]
-        for r in range(repeat):
+
+        def body(h, p_rep, pattern=pattern):
+            new_caches = []
             for i, blk in enumerate(pattern):
-                x, c = B.block_seq(
-                    tree_map(lambda a: a[r], gp[i]), x, positions, cfg, blk,
-                    memory=memory, want_cache=want_cache, cache_len=cache_len,
-                )
-                per_pos[i].append(c)
+
+                def one(p_i, h_i, blk=blk):
+                    return B.block_seq(
+                        p_i, h_i, positions, cfg, blk,
+                        memory=memory, want_cache=want_cache, cache_len=cache_len,
+                    )
+
+                h, c = (_checkpointed(one) if per_block else one)(p_rep[i], h)
+                new_caches.append(c)
+            return h, new_caches
+
+        body_fn = _checkpointed(body) if outer else body
+        per_pos = [[] for _ in pattern]
+        for p_rep in zip(*(_unstack(gp[i], repeat) for i in range(len(pattern)))):
+            x, c = body_fn(x, p_rep)
+            for i in range(len(pattern)):
+                per_pos[i].append(c[i])
         caches.append(tuple(_stack(c) for c in per_pos) if want_cache else None)
     return x, caches
 

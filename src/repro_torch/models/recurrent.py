@@ -298,13 +298,15 @@ def slstm_seq(p, x, num_heads: int, state=None):
     ys = []
     for xt in pre:
         rec = torch.einsum("bhd,ghde->gbhe", h, r)       # (4,B,H,dh)
-        z = torch.tanh(xt[:, 0] + rec[0])
-        li = xt[:, 1] + rec[1]                           # log input gate
-        lf = F.logsigmoid(xt[:, 2] + rec[2])             # log forget gate
-        o = torch.sigmoid(xt[:, 3] + rec[3])
-        m_new = torch.maximum(lf + m, li)
+        gates = xt + rec.transpose(0, 1)                 # (B,4,H,dh): z, i, f, o pre-activations
+        z = torch.tanh(gates[:, 0])
+        li = gates[:, 1]                                 # log input gate
+        lf = F.logsigmoid(gates[:, 2])                   # log forget gate
+        o = torch.sigmoid(gates[:, 3])
+        lfm = lf + m
+        m_new = torch.maximum(lfm, li)
         i_ = torch.exp(li - m_new)
-        f_ = torch.exp(lf + m - m_new)
+        f_ = torch.exp(lfm - m_new)
         c = f_ * c + i_ * z
         n = f_ * n + i_
         h = o * (c / torch.clamp_min(n, 1e-6))

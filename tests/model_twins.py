@@ -21,6 +21,7 @@ import warnings
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.configs as ref_configs
@@ -364,3 +365,140 @@ def check_greedy_tokens(arch, batch_size=3, prompt=12, max_new=12):
         # the last step's logits too, when no near-tie parted the loops
         err = np.abs(got.logits.numpy() - ref_logits[:, -1]).max() / np.abs(ref_logits[:, -1]).max()
         assert err <= TOL["float32"], err
+
+
+# -- training ------------------------------------------------------------------
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's reduced models on one torch thread: their ops are tiny,
+    and with pytest-xdist's workers each running a full thread pool they
+    spend most of their time in thread contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# a train step's inputs: 40 tokens (three query / key chunks of 16, the last
+# padded) and ce_chunk 200 (the reduced vocab of 512 in three chunks, the last
+# overlapping the second), so the rematerialized backwards walk several chunks
+TRAIN_BATCH, TRAIN_SEQ = 2, 40
+TRAIN_OVERRIDES = {"ce_chunk": 200}
+TRAIN_HP = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}
+
+
+def tree_at(tree, path):
+    """The leaf of a dict / list tree at a JAX key path."""
+    for p in path:
+        tree = tree[p.key] if hasattr(p, "key") else tree[p.idx]
+    return tree
+
+
+def ref_leaves(tree):
+    """(key path string, path, leaf) of a reference tree, in its flatten order."""
+    return [(jax.tree_util.keystr(p), p, x) for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def assert_tree_atol(got, want, atol, what=""):
+    """The port's tree against the reference's, leaf for leaf by path:
+    max|got - want| <= atol."""
+    for name, path, w in ref_leaves(want):
+        err = float(np.max(np.abs(as_numpy(tree_at(got, path)) - as_numpy(w)), initial=0.0))
+        assert err <= atol, f"{what}{name}: max|diff| = {err:.3g} > {atol}"
+
+
+def clone_tree(tree):
+    return M.tree_map(lambda t: t.detach().clone(), tree)
+
+
+_TRAIN_RUNS = {}
+
+
+def train_twin(arch, dtype="float32", **overrides):
+    """One train step of each package on the same weights and batch
+    (memoized): the reference's ``make_train_step`` jitted, the port's on
+    the CPU.  Step 1 starts both from ``adamw_init``; step 2 starts both
+    from the reference's params and optimizer state after its step 1.
+    The reference's gradients are the ones its step hands to
+    ``adamw_update`` (after the bf16 cast, where there is one), captured by
+    a wrapper of ``repro.train.steps.adamw_update`` while the step traces,
+    so one program gives both.
+    Returns {"cfg", "hp", "ref": {...}, "port": {...}} with keys loss,
+    grads, params1, opt1, metrics1, params2, opt2, metrics2."""
+    import repro.train.steps as ref_steps
+    from repro.train import OptHParams as RefHP
+    from repro.train import adamw_init as ref_adamw_init
+    from repro_torch.train import OptHParams, adamw_init, make_train_step
+    from repro_torch.train.steps import loss_and_grads
+
+    overrides = {**TRAIN_OVERRIDES, **overrides}
+    key = (arch, dtype, tuple(sorted(overrides.items())))
+    if key in _TRAIN_RUNS:
+        return _TRAIN_RUNS[key]
+    ref_cfg, cfg = twin_configs(arch, dtype, **overrides)
+    ref_params, params = twin_params(ref_cfg, seed=1)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=3)
+    ref_hp, hp = RefHP(**TRAIN_HP), OptHParams(**TRAIN_HP)
+
+    real_update = ref_steps.adamw_update
+
+    def capturing(p, grads, state, hp_):
+        new_p, new_state, metrics = real_update(p, grads, state, hp_)
+        return new_p, new_state, dict(metrics, grads=grads)
+
+    ref_steps.adamw_update = capturing
+    try:
+        fn = jax.jit(ref_steps.make_train_step(ref_cfg, ref_hp))
+        jb, tb = to_jax(batch), to_torch(batch)
+        ref = {}
+        ref["params1"], ref["opt1"], ref["metrics1"] = fn(
+            ref_params, ref_adamw_init(ref_params, ref_cfg.opt_state_dtype), jb)
+        ref["params2"], ref["opt2"], ref["metrics2"] = fn(ref["params1"], ref["opt1"], jb)
+    finally:
+        ref_steps.adamw_update = real_update
+    ref["loss"], ref["grads"] = ref["metrics1"]["loss"], ref["metrics1"].pop("grads")
+    ref["metrics2"].pop("grads")
+
+    port = {}
+    port["loss"], port["grads"] = loss_and_grads(params, tb, cfg)
+    step = make_train_step(cfg, hp)
+    p1 = clone_tree(params)
+    port["params1"], port["opt1"], port["metrics1"] = step(p1, adamw_init(p1, cfg.opt_state_dtype), tb)
+    p2 = params_from_numpy(jax.tree.map(np.asarray, ref["params1"]), "cpu")
+    o2 = params_from_numpy(jax.tree.map(np.asarray, ref["opt1"]), "cpu")
+    port["params2"], port["opt2"], port["metrics2"] = step(p2, o2, tb)
+    out = {"cfg": cfg, "ref_cfg": ref_cfg, "hp": hp, "params": params, "batch": batch, "ref": ref, "port": port}
+    _TRAIN_RUNS[key] = out
+    return out
+
+
+GRAD_TOL = 1e-4     # a gradient leaf: max|diff| / max|ref|, fp32
+LOSS_TOL = 1e-5     # loss, grad_norm, lr
+
+
+def check_grads(arch, dtype="float32", **overrides):
+    run = train_twin(arch, dtype, **overrides)
+    assert_close(run["port"]["loss"], run["ref"]["loss"], LOSS_TOL, "loss")
+    assert_tree_close(run["port"]["grads"], run["ref"]["grads"], GRAD_TOL, "grads")
+    return run
+
+
+def check_train_step(arch):
+    run = train_twin(arch)
+    port, ref = run["port"], run["ref"]
+    assert_close(port["loss"], ref["loss"], LOSS_TOL, "loss")
+    for step in ("1", "2"):
+        for name in ("grad_norm", "lr"):
+            assert_close(port["metrics" + step][name], ref["metrics" + step][name], LOSS_TOL, f"step {step} {name}")
+        assert_close(port["metrics" + step]["loss"], ref["metrics" + step]["loss"], LOSS_TOL, f"step {step} loss")
+        atol = 2 * float(ref["metrics" + step]["lr"])
+        assert_tree_atol(port["params" + step], ref["params" + step], atol, f"step {step} params")
+        for moment in ("m", "v"):
+            assert_tree_close(port["opt" + step][moment], ref["opt" + step][moment], GRAD_TOL, f"step {step} {moment}")
+        assert int(port["opt" + step]["step"]) == int(ref["opt" + step]["step"]) == int(step)
+    # the step moved the weights
+    moved = [name for name, path, w in ref_leaves(ref["params1"])
+             if rel_err(tree_at(port["params1"], path), tree_at(run["params"], path)) > 0]
+    assert moved, "the step moved no weight"

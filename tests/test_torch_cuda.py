@@ -738,3 +738,21 @@ def test_reduced_recurrent_mla_moe_models_on_the_card_equal_the_cpu(cuda, arch, 
     """The four archs of MLA, MoE and the recurrent mixers: their recurrent
     states and MLA caches after 8 chained decode steps too."""
     _reduced_card_vs_cpu(cuda, arch, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["gemma3_12b", "seamless_m4t_medium", "recurrentgemma_2b", "xlstm_125m",
+                                  "deepseek_v2_236b", "arctic_480b"])
+def test_reduced_train_step_on_the_card_equals_the_cpu(cuda, arch, dtype):
+    """One ``make_train_step`` step of a reduced config on the card against
+    the CPU (chip_smoke phase 12 (a)): loss, grad_norm, lr, the gradients
+    and the updated params (``train_card_vs_cpu``); no kernel of
+    ``repro_torch.kernels`` launches."""
+    from chip_smoke import train_card_vs_cpu
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.train import steps
+
+    before = {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES, **flash_attention.LAUNCHES}
+    train_card_vs_cpu(torch, M, configs, steps, arch, dtype, 3)
+    assert before == {**distance_tile.LAUNCHES, **dense_tile.LAUNCHES, **flash_attention.LAUNCHES}
