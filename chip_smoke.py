@@ -208,7 +208,25 @@ Phases, each printing one JSON line:
    (``remat_kv``) against ``attention_plain``'s, within 1e-4, each with
    its bytes saved for backward; only (b)'s dedup launches kernels: K1
    (the result-size estimate) and K2's fused pairs step at T = 32.
-   ``--model-train-only`` runs this phase alone.
+   ``--model-train-only`` runs this phase alone;
+13. model_shard -- the sharding rules, the dry-runs and the roofline
+   (``repro_torch.sharding``, ``.launch.dryrun``,
+   ``.launch.selfjoin_dryrun``, ``.roofline``): (b) the dry-runs, each a
+   process on fake tensors (xlstm-125m x long_500k on 2 x 16 x 16,
+   gemma3-12b x decode_32k on both production meshes, the ring at its
+   default 2^24 x 32 points), started together at the phase's start; phase
+   13 waits for them first and prints one line per cell, so that (c) times
+   on quiet cores; (c) gemma3-12b's decode step (batch 4, context 1536) and
+   recurrentgemma-2b's train step (2 x 2048) on real tensors: CUDA-event ms
+   beside ``count_ops()``'s compute (fp32 products at the fp32 peak) and
+   memory terms on ``H100``; (a) recurrentgemma-2b uncut served (4 prompts
+   of 128, 8 greedy steps) as DTensors placed by the rules on a one-rank
+   NCCL mesh, tokens equal to the plain serve's and the last logits within
+   one bf16 rounding: every placement is a replica there, so it checks
+   DTensor on CUDA tensors, not a shard (gloo crashes on CUDA tensors and
+   NCCL takes one rank per card; the 2 x 2 mesh's values are the CPU
+   tests'). No kernel may launch. ``--model-shard-only`` runs this phase
+   alone.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -220,8 +238,9 @@ Kernel launch counters are set to 0 just before phase 3 and read just
 after phase 4 (``launches``), every kernel's (K5's too) again just before
 and after phase 7 (``serving_launches``), phase 8 (``distributed_launches``), phase 9
 (``fused_ring_launches``, its ranks' counters summed), phase 10
-(``downstream_launches``), phase 11 (``model_serve_launches``, all 0) and phase 12
-(``model_train_launches``, the dedup's), and K5's just
+(``downstream_launches``), phase 11 (``model_serve_launches``, all 0), phase 12
+(``model_train_launches``, the dedup's) and phase 13 (``model_shard_launches``,
+all 0), and K5's just
 before and after its two full-width calls; a kernel that its path never launched fails the run.  The line before the last lists
 every kernel with its numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  The script
@@ -3984,6 +4003,250 @@ def phase_model_train(torch, seed):
     return launches
 
 
+SHARD_ARCH = "recurrentgemma_2b"          # (a): uncut, its params, caches and tokens placed by the rules
+SHARD_MESH = (1, 1)                       # ("data", "model") on a one-rank NCCL group: see sharded_serve
+SHARD_BATCH, SHARD_PROMPT, SHARD_NEW = 4, 128, 9   # a prefill of 4 prompts, then 8 greedy decode steps
+SHARD_TOL = 2.0 ** -8                     # the last logits: one bf16 rounding, max|diff| / max|ref|
+DRYRUN_CELLS = (("xlstm_125m", "long_500k", "--multi-pod"), ("gemma3_12b", "decode_32k", "--both-meshes"))
+DRYRUN_DEADLINE_S = 300.0                 # for the dry-runs together, from their start
+ROOF_DECODE_ITERS, ROOF_TRAIN_ITERS = 5, 2   # (c): timed calls after one warm-up
+
+
+def sharded_serve(torch, configs, M, serve, tmp, seed):
+    """(a): SHARD_ARCH uncut, served unsharded, then as DTensors on a
+    one-rank NCCL ("data", "model") mesh, params, caches and tokens placed by
+    ``param_specs`` / ``cache_specs`` / ``batch_spec``; the tokens must be
+    equal and the last logits within one bf16 rounding.  On a 1 x 1 mesh
+    ``to_placements`` replicates every dim, so this shows that the rules'
+    placements and DTensor's dispatch run on CUDA tensors, not that a
+    shard or a collective is right: gloo, the only backend that puts
+    several ranks on one card, crashes on CUDA tensors (torch 2.11: a
+    segfault in the all-gather DTensor issues), and NCCL takes one rank per
+    card, so the 2 x 2 mesh's values are held on the CPU
+    (``tests/test_torch_sharding.py``, four gloo processes)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import batch_spec, cache_specs, distribute, param_specs
+    from repro_torch.train import make_prefill, make_serve_step
+
+    cfg = configs.get_config(SHARD_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    batch = serve.make_batch(cfg, SHARD_BATCH, SHARD_PROMPT, "cuda", seed)
+    gen = serve.generate(cfg, params, batch, SHARD_NEW)
+    want_tokens, want_logits = gen.tokens, gen.logits.float()
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "activation_dtype": cfg.activation_dtype,
+           "mesh": dict(zip(("data", "model"), SHARD_MESH)), "backend": "nccl", "batch": SHARD_BATCH,
+           "prompt": SHARD_PROMPT, "decode_steps": SHARD_NEW - 1, "unsharded_prefill_ms": gen.prefill_s * 1e3,
+           "unsharded_decode_ms_per_token": gen.decode_s / (SHARD_NEW - 1) * 1e3}
+    del gen
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", SHARD_MESH, mesh_dim_names=("data", "model"))
+        sp = distribute(params, param_specs(params, mesh), mesh, src_data_rank=None)
+        sb = distribute(batch, batch_spec(batch, mesh), mesh, src_data_rank=None)
+        serve_step = make_serve_step(cfg)
+
+        def placed_token(t):
+            return distribute(t, batch_spec(t, mesh), mesh)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), implicit_replication():
+            logits, caches, memory = make_prefill(cfg, SHARD_PROMPT + SHARD_NEW)(sp, sb)
+            caches = distribute(caches, cache_specs(caches, mesh), mesh)
+            tok = placed_token(torch.argmax(L.unshard(logits[..., : cfg.vocab], -1), dim=-1).to(torch.int32))
+            torch.cuda.synchronize()
+            rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            toks = [tok]
+            t0 = time.perf_counter()
+            for i in range(SHARD_NEW - 1):
+                tok, logits, caches = serve_step(sp, caches, tok, SHARD_PROMPT + i, memory=memory)
+                tok = placed_token(tok)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            rec["decode_ms_per_token"] = (time.perf_counter() - t0) / (SHARD_NEW - 1) * 1e3
+        leaves = M.tree_leaves(sp)
+        check(all(hasattr(t, "placements") for t in leaves + M.tree_leaves(caches) + [tok]),
+              "a param, cache or token is not a DTensor")
+        rec["dtensor_leaves"] = {"params": len(leaves), "caches": len(M.tree_leaves(caches))}
+        got_tokens = torch.stack([t.full_tensor() for t in toks], dim=1).cpu().numpy()
+        got_logits = logits.full_tensor().float()
+    finally:
+        dist.destroy_process_group()
+    check(got_tokens.shape == want_tokens.shape and bool((got_tokens == want_tokens).all()),
+          f"the sharded serve's tokens {got_tokens.tolist()} are not the unsharded {want_tokens.tolist()}")
+    err = rel_err(got_logits, want_logits)
+    rec["tokens_equal"], rec["logits_err"], rec["logits_tol"] = True, err, SHARD_TOL
+    check(err <= SHARD_TOL, f"the sharded serve's last logits are {err:.3g} off the unsharded (tol {SHARD_TOL:.3g})")
+    rec["sample"] = got_tokens[0].tolist()
+    del params, batch, sp, sb, caches, logits, toks, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def shard_dir():
+    """Phase 13's directory under build/, emptied."""
+    tmp = ROOT / "build" / "model_shard"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    return tmp
+
+
+def dryruns(tmp):
+    """(b): the dry-runs, each a process of its own on fake tensors (the
+    host's cores, no card work), started together and waited for (killed
+    past DRYRUN_DEADLINE_S); prints each cell's terms on a line of its own."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, flag,
+             "--device", "cuda", "--out", str(tmp / "dryrun_torch")] for arch, shape, flag in DRYRUN_CELLS]
+    cmds.append([sys.executable, "-m", "repro_torch.launch.selfjoin_dryrun", "--device", "cuda",
+                 "--out", str(tmp / "selfjoin_ring_torch.json")])
+    t_start = time.perf_counter()
+    procs = []
+    try:
+        for i, cmd in enumerate(cmds):
+            log = open(tmp / f"dryrun{i}.log", "w")
+            procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)), log))
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(t_start + DRYRUN_DEADLINE_S - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"the dry-runs passed their {DRYRUN_DEADLINE_S:.0f} s deadline")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for i, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            raise SmokeFailure(f"dry-run {i} exited {p.returncode}:\n{(tmp / f'dryrun{i}.log').read_text()[-3000:]}")
+    keys = ("mesh", "chips", "flops_per_chip", "hbm_bytes_per_chip", "wire_bytes_per_chip", "compute_s",
+            "memory_s", "collective_s", "dominant", "step_time_s", "model_flops", "useful_flops_fraction", "mfu",
+            "temp_bytes_per_chip", "arg_bytes_per_chip", "collective_by_type", "lower_s")
+    cells = []
+    for path in sorted((tmp / "dryrun_torch").glob("*.json")):
+        d = json.loads(path.read_text())
+        cells.append({"phase": "dryrun_cell", "cell": path.stem, **{k: d.get(k) for k in keys}})
+    ring = json.loads((tmp / "selfjoin_ring_torch.json").read_text())
+    for tag, d in ring.items():
+        cells.append({"phase": "dryrun_cell", "cell": f"{d['arch']}__{d['shape']}__{tag}",
+                      **{k: d.get(k) for k in keys}})
+    check(len(cells) == 9, f"the dry-runs wrote {len(cells)} cells, not 3 model cells and 6 ring cells")
+    for cell in cells:
+        check(all(math.isfinite(cell[k]) and cell[k] >= 0 for k in ("compute_s", "memory_s", "collective_s")),
+              f"{cell['cell']}: a roofline term is not a finite time")
+        emit(cell)
+    return {"cells": len(cells), "wall_s": time.perf_counter() - t_start}
+
+
+def roofline_case(torch, count_ops, fn, iters):
+    """(ms per call by CUDA events over ``iters`` calls after a warm-up,
+    the OpCosts of one more call under ``count_ops``)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    with count_ops() as counter:
+        fn()
+    torch.cuda.synchronize()
+    return ms, counter.costs
+
+
+def roofline_row(roofline_terms, arch, what, ms, costs, model_flops):
+    rep = roofline_terms(arch=arch, shape=what, mesh_desc="1 card", chips=1, costs=costs, model_flops=model_flops)
+    bound_ms = max(rep.compute_s, rep.memory_s) * 1e3
+    return {"arch": arch, "what": what, "ms": ms, "compute_ms": rep.compute_s * 1e3, "memory_ms": rep.memory_s * 1e3,
+            "bound_ms": bound_ms, "ms_over_bound": ms / bound_ms, "dominant": rep.dominant,
+            "flops": costs.dot_flops, "flops_fp32": costs.dot_flops_fp32, "hbm_bytes": costs.hbm_bytes, "model_flops": model_flops,
+            "temp_bytes": costs.temp_bytes, "hw": rep.hw.name, "timing": "CUDA events"}
+
+
+def roofline_vs_card(torch, configs, M, serve, seed):
+    """(c): gemma3-12b's decode step (phase 11's batch and prompt) and
+    recurrentgemma-2b's train step (phase 12's batch and sequence), one rank,
+    real tensors: CUDA-event ms beside the counter's compute and memory terms
+    on ``H100``."""
+    from repro_torch.roofline import count_ops, roofline_terms
+    from repro_torch.roofline.analysis import model_flops_decode, model_flops_train
+    from repro_torch.train import OptHParams, adamw_init, make_serve_step, make_train_step
+
+    rows = []
+    cfg = configs.get_config(SERVE_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    batch = serve.make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda", seed)
+    with torch.no_grad():
+        logits, caches, memory = M.prefill(params, batch, cfg, SERVE_PROMPT + SERVE_NEW)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = make_serve_step(cfg)
+        ms, costs = roofline_case(torch, count_ops, lambda: step(params, caches, tok, SERVE_PROMPT, memory=memory),
+                                  ROOF_DECODE_ITERS)
+    rows.append(roofline_row(roofline_terms, cfg.name, f"decode step, batch {SERVE_BATCH}, context {SERVE_PROMPT}",
+                             ms, costs, model_flops_decode(cfg, SERVE_BATCH, SERVE_PROMPT)))
+    del params, batch, logits, caches, memory, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(RG_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    opt = adamw_init(params, cfg.opt_state_dtype)
+    batch = serve.make_batch(cfg, RG_BATCH, RG_SEQ, "cuda", seed)
+    train_step = make_train_step(cfg, OptHParams(lr=3e-4, warmup_steps=1, total_steps=RG_STEPS))
+    ms, costs = roofline_case(torch, count_ops, lambda: train_step(params, opt, batch), ROOF_TRAIN_ITERS)
+    rows.append(roofline_row(roofline_terms, cfg.name, f"train step, {RG_BATCH} x {RG_SEQ}", ms, costs,
+                             model_flops_train(cfg, RG_BATCH, RG_SEQ)))
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_model_shard(torch, seed):
+    """Phase 13, with the launch counters from 0: (b) the dry-runs, run
+    together as processes on the host's cores, waited for and their cells
+    printed one per line; (c) the roofline against the card; (a) the
+    sharding rules on the card (SHARD_ARCH as DTensors against the
+    unsharded serve).  No kernel may launch: the models call none."""
+    from repro_torch import configs
+    from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    mods = (distance_tile, dense_tile, flash_attention)
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = shard_dir()
+    rec = {"phase": "model_shard", "card": smi_name_limit()}
+    # the dry-runs first: (c) then times host-bound steps on quiet cores
+    rec["dryrun"] = dryruns(tmp)
+    t0 = time.perf_counter()
+    rec["roofline"] = roofline_vs_card(torch, configs, M, serve, seed)
+    rec["roofline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["sharded_serve"] = sharded_serve(torch, configs, M, serve, tmp, seed)
+    rec["sharded_serve_s"] = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    check(not any(launches.values()), f"phase 13 launched {({k: v for k, v in launches.items() if v})}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return launches
+
+
 def ranges_on(events, names, device_type):
     """The profiler ranges named in ``names`` on one side: with CUDA activity
     the profiler mirrors each host range (CPU) on the device timeline
@@ -4207,6 +4470,9 @@ def main() -> int:
                         help="run phase 11 (the model serving path) alone, and print no kernels line")
     parser.add_argument("--model-train-only", action="store_true",
                         help="run phase 12 (the training path) alone, and print no kernels line")
+    parser.add_argument("--model-shard-only", action="store_true",
+                        help="run phase 13 (sharding, dry-runs, roofline) alone, and print no kernels line")
+
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4229,6 +4495,10 @@ def main() -> int:
     if args.model_train_only:
         print(smi_name_limit(), flush=True)
         phase_model_train(torch, args.seed)
+        return 0
+    if args.model_shard_only:
+        print(smi_name_limit(), flush=True)
+        phase_model_shard(torch, args.seed)
         return 0
 
     t_start = time.perf_counter()
@@ -4342,6 +4612,8 @@ def main() -> int:
     model_serve = phase_model_serve(torch, args.seed)
     # the training path: its own counters, from 0
     model_train = phase_model_train(torch, args.seed)
+    # the sharding rules, the dry-runs and the roofline: their own counters, from 0
+    model_shard = phase_model_shard(torch, args.seed)
 
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][2],
@@ -4381,6 +4653,7 @@ def main() -> int:
     for row in rows:
         row["model_serve_launches"] = model_serve[row["name"]]   # phase 11 checks it is 0
         row["model_train_launches"] = model_train[row["name"]]   # phase 12: the dedup's K1 and K2 steps only
+        row["model_shard_launches"] = model_shard[row["name"]]   # phase 13 checks it is 0
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -36,7 +36,7 @@ join is ``core/dist_engine.py``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +47,10 @@ from repro_torch import obs
 from repro_torch.core.snapshot import resolve_device
 
 AxisNames = Union[str, Tuple[str, ...]]
+
+# callables (bytes per rank, ring size) told of each ring rotation: the
+# exchange is no dispatcher op, so a dispatch-mode op counter listens here
+ROTATION_LISTENERS: List[Callable[[int, int], None]] = []
 
 
 def _axes_tuple(axes: AxisNames) -> Tuple[str, ...]:
@@ -146,8 +150,15 @@ def _issue_rotation(ring: Ring, payload):
 
     Returns the payload as it will arrive and what ``_finish_rotation``
     waits on (the works, and the ops that hold the buffers until then).
+    The exchange is no dispatcher op, so each of ``ROTATION_LISTENERS``
+    (an entered ``roofline.count_ops()``) is told its bytes per rank and
+    the ring's size.
     """
     leaves, spec = pytree.tree_flatten(payload)
+    if ROTATION_LISTENERS:
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        for listener in ROTATION_LISTENERS:
+            listener(nbytes, ring.size)
     recv = [torch.empty_like(x) for x in leaves]
     ops = []
     for x, y in zip(leaves, recv):

@@ -146,23 +146,31 @@ class _FlashRemat(torch.autograd.Function):
         do_p = _pad_seq(dout.float(), qp.shape[1] - sq)          # (B, Sq_p, KV, G, dv)
         delta = _pad_seq((dout.float() * out).sum(dim=-1), qp.shape[1] - sq).permute(0, 2, 3, 1)
         inv_l = 1.0 / torch.clamp_min(l, 1e-37)                   # (B, KV, G, Sq_p)
-        dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
-        dk = torch.zeros(kp.shape, dtype=torch.float32, device=q.device)
-        dv = torch.zeros(vp.shape, dtype=torch.float32, device=q.device)
+        # per chunk accumulators, concatenated at the end: no in-place
+        # slice writes, which a DTensor cannot take
+        def zeros(t, n):
+            return t.new_zeros((t.shape[0], n) + tuple(t.shape[2:]), dtype=torch.float32)
+
+        dqs = []
+        dks = [zeros(kp, kc) for _ in range(nk)]
+        dvs = [zeros(vp, kc) for _ in range(nk)]
         for qi in range(nq):
             qs = slice(qi * qc, (qi + 1) * qc)
             qb = qp[:, qs].float()
             dob = do_p[:, qs].permute(0, 2, 3, 1, 4)              # (B, KV, G, qc, dv)
+            dq = zeros(qp, qc)
             for ki in range(nk):
                 ks = slice(ki * kc, (ki + 1) * kc)
                 kb, vb = kp[:, ks].float(), vp[:, ks].float()
                 s, mask = _scores(qb, kb, qpos_p[qs], kpos_p[ks], causal, window, scale)
                 p = torch.exp(s - m[..., qs, None]) * inv_l[..., qs, None]
-                dv[:, ks] += torch.einsum("bkgqs,bkgqd->bskd", p, dob)
+                dvs[ki] = dvs[ki] + torch.einsum("bkgqs,bkgqd->bskd", p, dob)
                 ds = p * (torch.einsum("bkgqd,bskd->bkgqs", dob, vb) - delta[..., qs, None])
                 ds = ds.masked_fill(~mask, 0.0) * scale
-                dq[:, qs] += torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
-                dk[:, ks] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+                dq = dq + torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
+                dks[ki] = dks[ki] + torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+            dqs.append(dq)
+        dq, dk, dv = (torch.cat(parts, dim=1) for parts in (dqs, dks, dvs))
         return (dq[:, :sq].to(q.dtype), dk[:, :sk].to(k.dtype), dv[:, :sk].to(v.dtype),
                 None, None, None, None, None, None, None)
 
@@ -219,11 +227,11 @@ def project_qkv(p, x, positions, cfg, block, *, memory=None, memory_pos=None):
     g = h // kvh
     b, s, _ = x.shape
 
-    q = L.dense(p["wq"], x).reshape(b, s, kvh, g, dh)
+    q = L.split_last(L.dense(p["wq"], x), kvh, g, dh)
     src = memory if memory is not None else x
     sm = src.shape[1]
-    k = L.dense(p["wk"], src).reshape(b, sm, kvh, dh)
-    v = L.dense(p["wv"], src).reshape(b, sm, kvh, dh)
+    k = L.split_last(L.dense(p["wk"], src), kvh, dh)
+    v = L.split_last(L.dense(p["wv"], src), kvh, dh)
 
     if "qnorm" in p:
         q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
@@ -261,7 +269,7 @@ def attention(p, x, positions, cfg, block, *, memory=None, memory_pos=None,
         causal=causal and not cross, window=block.window if not cross else 0,
         q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, remat_kv=cfg.flash_remat,
     )
-    y = L.dense(p["wo"], out.reshape(b, s, cfg.num_heads * cfg.head_dim_))
+    y = L.dense(p["wo"], L.merge_last(out, 3))
     if return_kv:
         return y, (k, v)
     return y
@@ -305,22 +313,22 @@ def attention_decode(p, x, cache, pos, cfg, block, *, memory=None):
     g = h // kvh
     b = x.shape[0]
 
-    q = L.dense(p["wq"], x).reshape(b, 1, kvh, g, dh)
+    q = L.split_last(L.dense(p["wq"], x), kvh, g, dh)
     if memory is not None:  # cross-attn: static memory, no cache update
         sm = memory.shape[1]
-        k = L.dense(p["wk"], memory).reshape(b, sm, kvh, dh)
-        v = L.dense(p["wv"], memory).reshape(b, sm, kvh, dh)
+        k = L.split_last(L.dense(p["wk"], memory), kvh, dh)
+        v = L.split_last(L.dense(p["wv"], memory), kvh, dh)
         if "qnorm" in p:
             q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
             k = L.rmsnorm(p["knorm"], k, cfg.norm_eps)
         s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())[:, :, :, 0] / float(np.sqrt(dh))
         w = torch.softmax(s, dim=-1)
         out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
-        out = out.reshape(b, 1, h * dh).to(x.dtype)
+        out = L.merge_last(out, 3).reshape(b, 1, h * dh).to(x.dtype)
         return L.dense(p["wo"], out), cache
 
-    k1 = L.dense(p["wk"], x).reshape(b, 1, kvh, dh)
-    v1 = L.dense(p["wv"], x).reshape(b, 1, kvh, dh)
+    k1 = L.split_last(L.dense(p["wk"], x), kvh, dh)
+    v1 = L.split_last(L.dense(p["wv"], x), kvh, dh)
     if "qnorm" in p:
         q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
         k1 = L.rmsnorm(p["knorm"], k1, cfg.norm_eps)
@@ -347,5 +355,6 @@ def attention_decode(p, x, cache, pos, cfg, block, *, memory=None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum(
         "bkgs,bskd->bkgd", w, cv.to(q.dtype).float()
-    ).reshape(b, 1, h * dh).to(x.dtype)
+    )
+    out = L.merge_last(out, 3).reshape(b, 1, h * dh).to(x.dtype)
     return L.dense(p["wo"], out), cache

@@ -119,29 +119,42 @@ def block_seq(p, x, positions, cfg, blk, *, memory=None, want_cache=False,
     return _ffn(p, x, cfg, blk), cache
 
 
+def _pad_slots(t, slots, fill):
+    """``t`` with axis 1 padded to ``slots`` rows of ``fill``."""
+    pad = t.new_full((t.shape[0], slots - t.shape[1]) + tuple(t.shape[2:]), fill)
+    return torch.cat([t, pad], dim=1)
+
+
 def _kv_prefill_cache(k, v, positions, cfg, blk, cache_len):
-    """Place prefill K/V into a decode cache (ring layout for local attn)."""
-    b, s = k.shape[0], k.shape[1]
-    cache = A.init_cache(cfg, blk, b, cache_len, k.dtype, device=k.device)
-    slots = cache["k"].shape[1]
+    """Place prefill K/V (positions 0 .. s-1) into a decode cache, position
+    p at slot p % slots (the ring layout of local attention), as
+    ``A.init_cache`` lays it out.  Built by concatenation and a roll, not
+    index writes, so that DTensor keys give a DTensor cache."""
+    s = k.shape[1]
+    slots = min(blk.window, cache_len) if blk.window > 0 else cache_len
+    pos = positions.to(torch.int32)
     if s >= slots:  # keep the last `slots` positions (ring)
-        k, v, positions = k[:, s - slots:], v[:, s - slots:], positions[s - slots:]
-    idx = (positions % slots).long()
-    cache["k"][:, idx] = k
-    cache["v"][:, idx] = v
-    cache["pos"][idx] = positions.to(torch.int32)
-    return cache
+        shift = (s - slots) % slots
+        k, v = (torch.roll(t[:, s - slots:], shift, dims=1) for t in (k, v))
+        pos = torch.roll(pos[s - slots:], shift, dims=0)
+    else:
+        k, v = _pad_slots(k, slots, 0), _pad_slots(v, slots, 0)
+        pos = _pad_slots(pos[None], slots, -1)[0]
+    return {"k": k, "v": v, "pos": pos}
 
 
 def _mla_prefill_cache(p_attn, h, positions, cfg, cache_len):
-    """The MLA decode cache after prefill: the latent and RoPE key at their positions."""
-    cache = MLA.mla_init_cache(cfg, h.shape[0], cache_len, h.dtype, device=h.device)
+    """The MLA decode cache after prefill (positions 0 .. s-1): the latent
+    and RoPE key at their positions, then empty slots."""
+    s = h.shape[1]
+    if s > cache_len:
+        raise IndexError(f"prefill of {s} positions past the MLA cache's {cache_len} slots")
     ckv, kr = MLA.latent_kv(p_attn, h, positions, cfg)
-    idx = positions.long()
-    cache["ckv"][:, idx] = ckv.to(cache["ckv"].dtype)
-    cache["kr"][:, idx] = kr.to(cache["kr"].dtype)
-    cache["pos"][idx] = positions.to(torch.int32)
-    return cache
+    return {
+        "ckv": _pad_slots(ckv.to(h.dtype), cache_len, 0),
+        "kr": _pad_slots(kr.to(h.dtype), cache_len, 0),
+        "pos": _pad_slots(positions.to(torch.int32)[None], cache_len, -1)[0],
+    }
 
 
 # ------------------------------------------------------------ step form ----

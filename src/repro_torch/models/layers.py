@@ -98,6 +98,72 @@ def dense(p, x, out_dtype=None):
     return y.to(out_dtype)
 
 
+def _replicated(t, where):
+    """The DTensor ``t`` with each placement that ``where`` picks made
+    ``Replicate()``: a collective."""
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(placements=[Replicate() if where(pl) else pl for pl in t.placements])
+
+
+def split_last(t, *sizes):
+    """``t`` with its last dim split into ``sizes``: a plain reshape.  A
+    DTensor sharded along that dim whose first size its shards do not divide
+    (8 KV heads of a 1024-wide projection on a 16-wide axis) is gathered
+    along it first, where GSPMD reshards in silence: DTensor cannot unflatten
+    an uneven shard.  The gather is a collective like any other, which
+    ``repro_torch.roofline.opcount`` charges."""
+    placements = getattr(t, "placements", None)
+    if placements is not None:
+        last = t.ndim - 1
+        shards = 1
+        for i, pl in enumerate(placements):
+            if pl.is_shard(last):
+                shards *= t.device_mesh.size(i)
+        if sizes[0] % shards:
+            t = _replicated(t, lambda pl: pl.is_shard(last))
+    return t.reshape(tuple(t.shape[:-1]) + tuple(sizes))
+
+
+def merge_last(t, n):
+    """``t`` with its last ``n`` dims flattened into one: a plain reshape.  A
+    DTensor keeps a shard of the outermost of them (past dims of size 1) and
+    gathers any shard of an inner one first (head_dim under the heads):
+    flattening that would need a strided shard, which DTensor does not
+    carry through the ops after it."""
+    placements = getattr(t, "placements", None)
+    if placements is not None:
+        dims = range(t.ndim - n, t.ndim)
+        outer = next((d for d in dims if t.shape[d] > 1), dims[0])
+        inner = [d for d in dims if d != outer]
+        if any(pl.is_shard() and pl.dim in inner for pl in placements):
+            t = _replicated(t, lambda pl: pl.is_shard() and pl.dim in inner)
+    return t.reshape(tuple(t.shape[:t.ndim - n]) + (-1,))
+
+
+def unshard(t, dim):
+    """``t`` whole along ``dim`` on every rank: a DTensor sharded along it
+    is gathered (DTensor's argmax over a sharded dim computes its global
+    offsets from tensors, which fake tensors cannot give); a plain tensor as
+    it is."""
+    placements = getattr(t, "placements", None)
+    dim = dim % t.ndim
+    if placements is None or not any(pl.is_shard(dim) for pl in placements):
+        return t
+    return _replicated(t, lambda pl: pl.is_shard(dim))
+
+
+def reduce_partial(t):
+    """``t`` with a DTensor's pending partial sums all-reduced now; a plain
+    tensor as it is.  A gather or an embedding lookup along a vocab-sharded
+    dim leaves a masked partial that DTensor can reduce once only, and only
+    at the lookup's shape, so the caller reduces it before it reshapes or
+    reuses it."""
+    placements = getattr(t, "placements", None)
+    if placements is None or not any(pl.is_partial() for pl in placements):
+        return t
+    return _replicated(t, lambda pl: pl.is_partial())
+
+
 def rmsnorm_init(init: Init, d: int, dtype):
     return {"scale": init.ones((d,), dtype)}
 
@@ -126,7 +192,11 @@ def embed_init(init: Init, vocab: int, d: int, dtype):
 
 
 def embed(p, ids, out_dtype):
-    return p["table"][ids].to(out_dtype)
+    # ``embedding``, not ``table[ids]``: the same rows, and DTensor looks a
+    # vocab-sharded table up shard by shard (a masked partial sum, reduced
+    # here: the residual stream reads it twice) where it would gather the
+    # whole table for an index
+    return reduce_partial(torch.nn.functional.embedding(ids, p["table"])).to(out_dtype)
 
 
 def unembed(p_embed, x):
@@ -256,7 +326,7 @@ class _BlockedCE(torch.autograd.Function):
             local = lab - start
             in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
             safe = local.clamp(0, chunk - 1)
-            got = torch.gather(lc, -1, safe[..., None])[..., 0]
+            got = reduce_partial(torch.gather(lc, -1, safe[..., None]))[..., 0]
             picked = torch.where(in_chunk & (got > -torch.inf), got, picked)
         ll = picked - m - torch.log(torch.clamp_min(z, 1e-37))
         mask = (labels >= 0).float()
@@ -277,29 +347,31 @@ class _BlockedCE(torch.autograd.Function):
         inv_z = 1.0 / torch.clamp_min(z, 1e-37)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dx = torch.zeros_like(xf) if need_x else None
-        dw = torch.zeros_like(weight) if need_w else None
-        db = torch.zeros_like(bias) if need_b else None
+        dws, dbs = [], []    # per chunk, the columns it sees first (no in-place slice writes: DTensor)
         for start, vfrom in spans:
             lc, th, seen = _ce_logits(xf, weight, bias, tied, start, vfrom, chunk, logit_softcap)
             d = torch.exp(lc - m[..., None]) * inv_z[..., None]        # softmax, 0 at re-seen columns
             local = lab - start
             in_chunk = (local >= 0) & (local < chunk) & (lab - vfrom >= 0)
-            onehot = torch.zeros_like(d).scatter_(-1, local.clamp(0, chunk - 1)[..., None],
-                                                  in_chunk[..., None].float())
+            col = torch.arange(chunk, device=d.device)
+            onehot = ((col == local.clamp(0, chunk - 1)[..., None]) & in_chunk[..., None]).float()
             d = (d - onehot) * w
             if th is not None:
                 d = d * (1.0 - th * th)
             d = d.masked_fill(~seen, 0.0)
             if need_x:
                 wc = weight[start:start + chunk].float() if tied else weight[:, start:start + chunk].float().T
-                dx += torch.matmul(d, wc)
+                dx = dx + torch.matmul(d, wc)
+            new = slice(vfrom - start, None)
             if need_w:
                 if tied:
-                    dw[start:start + chunk] += torch.einsum("bsc,bsd->cd", d, xf).to(dw.dtype)
+                    dws.append(torch.einsum("bsc,bsd->cd", d, xf)[new].to(weight.dtype))
                 else:
-                    dw[:, start:start + chunk] += torch.einsum("bsd,bsc->dc", xf, d).to(dw.dtype)
+                    dws.append(torch.einsum("bsd,bsc->dc", xf, d)[:, new].to(weight.dtype))
             if need_b:
-                db[start:start + chunk] += d.sum(dim=(0, 1)).to(db.dtype)
+                dbs.append(d.sum(dim=(0, 1))[new].to(bias.dtype))
+        dw = torch.cat(dws, dim=0 if tied else 1) if need_w else None
+        db = torch.cat(dbs) if need_b else None
         return (dx.to(x.dtype) if need_x else None), dw, db, None, None, None, None
 
 

@@ -43,7 +43,7 @@ def _project_q(p, x, cfg, positions):
     h = cfg.num_heads
     b, s, _ = x.shape
     cq = L.rmsnorm(p["qnorm"], L.dense(p["wdq"], x), cfg.norm_eps)
-    q = L.dense(p["wuq"], cq).reshape(b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = L.split_last(L.dense(p["wuq"], cq), h, m.qk_nope_head_dim + m.qk_rope_head_dim)
     qn, qr = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     cos, sin = L.rope_cos_sin(positions, m.qk_rope_head_dim, ROPE_THETA)
     return qn, L.apply_rope(qr, cos, sin)
@@ -60,7 +60,7 @@ def latent_kv(p, x, positions, cfg):
 def _split_wukv(p, cfg):
     """wukv as (r, H, dn) for keys and (r, H, dv) for values."""
     m = cfg.mla
-    wukv = p["wukv"]["w"].reshape(m.kv_lora_rank, cfg.num_heads, m.qk_nope_head_dim + m.v_head_dim)
+    wukv = L.split_last(p["wukv"]["w"], cfg.num_heads, m.qk_nope_head_dim + m.v_head_dim)
     return wukv[..., : m.qk_nope_head_dim], wukv[..., m.qk_nope_head_dim:]
 
 
@@ -75,7 +75,7 @@ def mla_attention(p, x, positions, cfg, block):
     b, s, _ = x.shape
     qn, qr = _project_q(p, x, cfg, positions)
     ckv, kr = latent_kv(p, x, positions, cfg)
-    kv = L.dense(p["wukv"], ckv).reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    kv = L.split_last(L.dense(p["wukv"], ckv), h, m.qk_nope_head_dim + m.v_head_dim)
     kn, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
 
     q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]                   # (B,S,H,1,dqk)
@@ -85,7 +85,7 @@ def mla_attention(p, x, positions, cfg, block):
         causal=True, window=0, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
         remat_kv=cfg.flash_remat,
     )                                                                   # (B,S,H,1,dv)
-    return L.dense(p["wo"], out.reshape(b, s, h * m.v_head_dim))
+    return L.dense(p["wo"], L.merge_last(out, 3))
 
 
 def mla_attention_absorbed(p, x, positions, cfg, block):
@@ -112,7 +112,7 @@ def mla_attention_absorbed(p, x, positions, cfg, block):
         remat_kv=cfg.flash_remat, scale=_scale(m),
     )                                                           # (B,S,1,H,r)
     y = torch.einsum("bshr,rhd->bshd", out[:, :, 0].float(), wuv.float()).to(x.dtype)
-    return L.dense(p["wo"], y.reshape(b, s, h * m.v_head_dim))
+    return L.dense(p["wo"], L.merge_last(y, 2))
 
 
 def mla_init_cache(cfg, batch: int, cache_len: int, dtype, device="cuda"):
@@ -153,5 +153,5 @@ def mla_decode(p, x, cache, pos, cfg, block):
     w = torch.softmax(s, dim=-1)
 
     o_lat = torch.einsum("bhs,bsr->bhr", w, ckv.float())
-    out = torch.einsum("bhr,rhd->bhd", o_lat, wuv.float()).reshape(b, 1, h * m.v_head_dim).to(x.dtype)
+    out = L.merge_last(torch.einsum("bhr,rhd->bhd", o_lat, wuv.float()), 2).reshape(b, 1, h * m.v_head_dim).to(x.dtype)
     return L.dense(p["wo"], out), cache

@@ -255,7 +255,7 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     # a negative label indexes from the end, as numpy / jnp indexing does;
     # the mask zeroes it
     idx = torch.where(labels >= 0, labels, labels + logits.shape[-1])
-    ll = torch.gather(logp, -1, idx[..., None])[..., 0]
+    ll = L.reduce_partial(torch.gather(logp, -1, idx[..., None]))[..., 0]
     mask = (labels >= 0).float()
     loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return loss, logits

@@ -98,7 +98,7 @@ def _experts(h, p, dtype):
     of experts."""
     e, d, f = p["wg"].shape
     step = max(1, EXPERT_SLICE // (d * f))
-    y = torch.empty(h.shape, dtype=dtype, device=h.device)
+    y = h.new_empty(h.shape, dtype=dtype)   # a DTensor like h when h is one
     for lo in range(0, e, step):
         es = slice(lo, lo + step)
         hs = h[:, es].float()
@@ -116,7 +116,7 @@ def _route_groups(xg, p, m, cap):
     st, sg, slot, keep, inv = route(xg, p["router"]["w"], m, cap)
     gi = torch.arange(g, device=xg.device)[:, None]
 
-    buf = torch.zeros((g, e * cap + 1, d), dtype=xg.dtype, device=xg.device)
+    buf = xg.new_zeros((g, e * cap + 1, d))
     buf[gi, slot] = xg[gi, st]                           # the pad row takes every dropped write
     y = _experts(buf[:, : e * cap].reshape(g, e, cap, d), p, xg.dtype)
 

@@ -96,7 +96,10 @@ def conv1d_seq(p, x):
     s = x.shape[1]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(w):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :s]
+        # x moved i steps later, zeros first (a concatenation: DTensor's pad
+        # then slice gives the wrong length under torch 2.11)
+        k = min(i, s)
+        shifted = torch.cat([x.new_zeros((x.shape[0], k) + tuple(x.shape[2:])), x[:, :s - k]], dim=1)
         out = out + shifted.float() * p["w"][w - 1 - i].float()
     return (out + p["b"].float()).to(x.dtype)
 
@@ -177,7 +180,7 @@ def _mlstm_qkv(p, x, num_heads):
     dh = p["wq"]["w"].shape[1] // num_heads
 
     def heads(name):
-        return L.dense(p[name], x, torch.float32).reshape(b, s, num_heads, dh).transpose(1, 2)
+        return L.split_last(L.dense(p[name], x, torch.float32), num_heads, dh).transpose(1, 2)
 
     q, k, v = heads("wq"), heads("wk"), heads("wv")
     li = L.dense(p["wi"], x, torch.float32).transpose(1, 2)            # (B,H,S) log input gate
@@ -217,7 +220,9 @@ def mlstm_seq(p, x, num_heads: int, state=None, chunk: int = 128):
     for ci in range(nc):
         sl = slice(ci * t, (ci + 1) * t)
         qc, kc, vc, lic, lfc = q[:, :, sl], k[:, :, sl], v[:, :, sl], li[:, :, sl], lf[:, :, sl]
-        lcum = torch.cumsum(lfc, dim=-1)                # L_t
+        # L_t; the dim counted from the front: DTensor's scan strategy does
+        # not normalize a negative dim, and scans a time-sharded dim per shard
+        lcum = torch.cumsum(lfc, dim=lfc.ndim - 1)
         ltot = lcum[..., -1:]                           # L_T
         # intra-chunk log weights D_ts = L_t - L_s + i_s (s <= t)
         dmat = lcum[..., :, None] - lcum[..., None, :] + lic[..., None, :]
@@ -241,7 +246,7 @@ def mlstm_seq(p, x, num_heads: int, state=None, chunk: int = 128):
         n_prev = n_prev * decay[..., None] + torch.einsum("bht,bhtd->bhd", w, kc)
         m_prev = m_new
     h = torch.cat(hs, dim=2)[:, :, :s]                   # (B,H,S,dh)
-    h = h.transpose(1, 2).reshape(b, s, num_heads * dh)
+    h = L.merge_last(h.transpose(1, 2), 2)
     return _mlstm_out(p, x, h), {"C": c_prev, "n": n_prev, "m": m_prev}
 
 
@@ -258,7 +263,7 @@ def mlstm_step(p, x1, state, num_heads: int):
     n_new = n * fs[..., None] + is_[..., None] * k
     num = torch.einsum("bhd,bhdv->bhv", q, c_new)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n_new)), torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(x1.shape[0], 1, -1)
+    h = L.merge_last(num / den[..., None], 2)[:, None]
     return _mlstm_out(p, x1, h), {"C": c_new, "n": n_new, "m": m_new}
 
 
@@ -289,7 +294,7 @@ def slstm_seq(p, x, num_heads: int, state=None):
     b, s, d = x.shape
     dh = d // num_heads
     pre = L.dense(p["wzifo"], x, torch.float32)          # (B,S,4D)
-    pre = pre.reshape(b, s, 4, num_heads, dh).permute(1, 0, 2, 3, 4)  # (S,B,4,H,dh)
+    pre = L.split_last(pre, 4, num_heads, dh).permute(1, 0, 2, 3, 4)  # (S,B,4,H,dh)
     r = p["r"].float()
 
     if state is None:
@@ -312,7 +317,7 @@ def slstm_seq(p, x, num_heads: int, state=None):
         h = o * (c / torch.clamp_min(n, 1e-6))
         m = m_new
         ys.append(h)
-    y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
+    y = L.merge_last(torch.stack(ys, dim=1), 2).to(x.dtype)
     y = L.rmsnorm(p["norm"], y)
     return L.dense(p["wout"], y), {"c": c, "n": n, "m": m, "h": h}
 

@@ -1,0 +1,10 @@
+from repro_torch.sharding.rules import (  # noqa: F401
+    param_specs,
+    cache_specs,
+    batch_spec,
+    dp_axes,
+    distribute,
+    to_placements,
+    PartitionSpec,
+    ShapeMesh,
+)

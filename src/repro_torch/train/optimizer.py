@@ -51,7 +51,7 @@ def adamw_init(params, state_dtype: str = "float32"):
     dt = getattr(torch, state_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)   # a DTensor leaf's moments placed as it is
 
     device = tree_leaves(params)[0].device
     return {
@@ -73,6 +73,11 @@ def _update_leaf(p, g, m, v, scale, lr, b1c, b2c, hp: OptHParams):
     t2 are the only leaf-sized fp32 temporaries (with a bf16 p, m or v, its
     fp32 copy too)."""
     f32 = torch.float32
+    placements = getattr(p, "placements", None)
+    if placements is not None and g.placements != placements:
+        # a DTensor gradient placed otherwise (partial sums, another shard):
+        # the in-place update needs it where p is (the gradient reduction)
+        g = g.redistribute(p.device_mesh, placements)
     t1 = g.to(f32) * scale                                 # g32
     t2 = torch.mul(t1, 1 - hp.b1)
     m32 = m.to(f32).mul_(hp.b1).add_(t2)                   # b1 m + (1 - b1) g32

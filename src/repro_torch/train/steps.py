@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import decode_step, forward_loss, prefill
+from repro_torch.models import layers as L
 from repro_torch.models.model import tree_leaves, tree_map
 from repro_torch.train.optimizer import OptHParams, adamw_update
 
@@ -79,7 +80,7 @@ def make_serve_step(cfg, *, greedy: bool = True):
     def serve_step(params, caches, token, pos, memory=None):
         logits, caches = decode_step(params, caches, token, pos, cfg, memory=memory)
         logits = logits[..., : cfg.vocab]
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_token = torch.argmax(L.unshard(logits, -1), dim=-1).to(torch.int32)
         return next_token, logits, caches
 
     return serve_step
