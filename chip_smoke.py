@@ -98,17 +98,21 @@ Phases, each printing one JSON line:
 8. distributed -- the distributed tier (``DistributedSelfJoinEngine``,
    host-driven: DIST_WORKERS workers simulated one after another in this
    process) on phase 3-4's arrays, with its own launch counters: Syn16D2M
-   uncut at 4 workers, round robin, ``count()``, whose counts must equal
-   phase 3's up to the eps boundary band (each shard runs its own REORDER)
-   and which must launch only K1's fused count step, once per chunk; its
+   cut to its first DIST_SYN_N points at 4 workers, round robin,
+   ``count()``, whose counts must equal the one-card engine's count of the
+   same points (made before the counters start) up to the eps boundary
+   band (each shard runs its own REORDER) and which must launch only K1's
+   fused count step, once per chunk; its
    time split per ring round into the blocks' host plans and chunk loops.
    CoocTexture: at 1 worker counts equal to phase 4's indexed count(); at 4
    workers round robin and dynamic counts equal to each other and to phase
    4's up to the band, ``self_join_pairs`` (row sums equal the counts, the
    pair set phase 4's up to the band; K1's fused count step once per count
    chunk and K2's fused pairs step twice per pairs chunk, nothing else),
-   kNN (k=16) of every point against the float64 top-k on 512 sampled rows,
-   and a dense-tier count that launches only the dense fused count step.
+   kNN (k=16) of every point of its first DIST_KNN_N (a cut: at all 68,040
+   the host's top-k sorts ~106M candidate pairs) against the float64 top-k
+   on 512 sampled rows, and a dense-tier count that launches only the
+   dense fused count step.
    Then the ring transport (``ring_self_join_counts``) on a one-rank NCCL
    group the phase creates and destroys, counts equal to phase 4's up to
    the band.  Multi-GPU stays unverified (one card);
@@ -121,8 +125,8 @@ Phases, each printing one JSON line:
    over its first FUSED_KNN_N points against the float64 top-k; (b)
    FUSED_RANKS processes of this script (``--fused-rank``) on the one
    card, a gloo ring (the payload in host memory), each loading the
-   kernels phase 1 built: Syn16D2M uncut, counts equal to phase 8's
-   4-worker counts row for row, its time split by the engine's spans
+   kernels phase 1 built: phase 8's Syn16D2M cut, counts equal to phase
+   8's 4-worker counts row for row, its time split by the engine's spans
    (block plans, sample, staging copies, chunk loops, exchanges);
    CoocTexture counts under both assignments equal to phase 8's, pairs
    equal to phase 8's pair set, and a forced capacity retry equal to the
@@ -196,8 +200,8 @@ Phases, each printing one JSON line:
    where the CPU's gradient is within MODEL_TOL of 0, whose sign AdamW's
    first step reads); (b) xlstm-125m uncut (12 layers, 102,425,160 fp32 parameters)
    through ``launch/train.main`` with ``--full-config --batch 8 --seq 1024
-   --dedup``: 4 steps with a checkpoint every 2, then 2 steps in a second
-   directory and a resume to 4, the final losses and the step-4 params
+   --dedup``: 2 steps with a checkpoint after each, then 1 step in a second
+   directory and a resume to 2, the final losses and the step-2 params
    within 1e-4; (c) recurrentgemma-2b uncut (26 layers, 2,894,481,920 fp32
    parameters, vocab 256,000, local MQA window 2048, remat "block" with
    flash_remat) for 3 ``make_train_step`` steps at 2 x 2048 tokens, no
@@ -213,10 +217,15 @@ Phases, each printing one JSON line:
    (``repro_torch.sharding``, ``.launch.dryrun``,
    ``.launch.selfjoin_dryrun``, ``.roofline``): (b) the dry-runs, each a
    process on fake tensors (xlstm-125m x long_500k on 2 x 16 x 16,
-   gemma3-12b x decode_32k on both production meshes, the ring at its
-   default 2^24 x 32 points), started together at the phase's start; phase
-   13 waits for them first and prints one line per cell, so that (c) times
-   on quiet cores; (c) gemma3-12b's decode step (batch 4, context 1536) and
+   gemma3-12b x decode_32k on both production meshes, deepseek-v2 and
+   arctic x decode_32k on 16 x 16, and cut to one block of each kind and
+   2048 tokens phi3-mini x prefill_32k, xlstm-125m x prefill_32k and
+   qwen3-32b x train_4k: one cell per fault class the DTensor seams had;
+   the ring at its default 2^24 x 32 points, one process per mesh and
+   variant), started together at the phase's start; phase 13 waits for
+   them first and prints one line per cell with its useful FLOPs
+   fraction, and fails on a model cell below 0.5 that ``LOW_USEFUL`` does
+   not name, so that (c) times on quiet cores; (c) gemma3-12b's decode step (batch 4, context 1536) and
    recurrentgemma-2b's train step (2 x 2048) on real tensors: CUDA-event ms
    beside ``count_ops()``'s compute (fp32 products at the fp32 peak) and
    memory terms on ``H100``; (a) recurrentgemma-2b uncut served (4 prompts
@@ -225,8 +234,14 @@ Phases, each printing one JSON line:
    one bf16 rounding: every placement is a replica there, so it checks
    DTensor on CUDA tensors, not a shard (gloo crashes on CUDA tensors and
    NCCL takes one rank per card; the 2 x 2 mesh's values are the CPU
-   tests'). No kernel may launch. ``--model-shard-only`` runs this phase
-   alone.
+   tests'); (d) deepseek-v2 at full width, cut to its dense layer and one
+   MoE layer, bf16, one ``make_train_step`` step at 1 x 1024 on DTensors
+   on that one-rank mesh against the plain step from the same weights
+   (loss, grad_norm and every param, m and v leaf within 2e-2), then the
+   DTensor state through ``save_checkpoint`` and ``restore_checkpoint(...,
+   shardings=)`` onto the mesh and onto plain CUDA tensors, bit for bit;
+   step ms (CUDA events) and peak memory of both steps. No kernel may
+   launch. ``--model-shard-only`` runs this phase alone.
 
 K1-K4's (and the fused steps') times are torch.profiler device time per launch, the mean over the
 records the profiler kept (on the card some sessions have kept fewer
@@ -2234,9 +2249,13 @@ def phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_eng
 # -- the distributed phase -----------------------------------------------------
 
 DIST_WORKERS = 4            # the ring's positions (simulated workers, one card)
-DIST_KNN_K = 16             # CoocTexture kNN over every point
-DIST_KNN_EPS0 = 0.061       # on CoocTexture the expansion then takes 2 rounds, ending at 0.122 where
-                            # every point has 16 candidates (~106M candidate pairs in the last pass)
+DIST_SYN_N = 500_000        # phases 8-9 run Syn16D2M cut to its first points: uncut, phase 8's 16 block
+                            # plans and phase 9's packs were the smoke's longest host work
+DIST_KNN_K = 16             # CoocTexture kNN of every point of its first DIST_KNN_N
+DIST_KNN_N = 16_384         # cut from 68,040: at every point the host's top-k sorted ~106M candidate
+                            # pairs, the longest wait of the smoke; the cut sorts ~6.6M
+DIST_KNN_EPS0 = 0.0625      # on those points the expansion then takes 2 rounds, ending at 0.125 where
+                            # every point has >= 19 candidates (the 16th neighbour lies at <= 0.1239)
 DIST_KNN_SAMPLE = 512       # rows of the kNN held against the float64 top-k
 
 
@@ -2278,21 +2297,23 @@ def check_knn(torch, np, pts, kn, rows, k, what):
     return int(bad.size), ulps
 
 
-def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, seed):
+def phase_distributed(torch, np, syn, cooc, cooc_counts, cooc_pairs, seed):
     """The distributed tier (``DistributedSelfJoinEngine``, host-driven,
     DIST_WORKERS simulated workers in this process) and the ring transport
     (``ring_self_join_counts`` on a one-rank NCCL group), on phase 3-4's
     arrays, with the launch counters from 0.
 
-    Syn16D2M uncut, round robin, ``count()``: counts equal phase 3's up to
+    Syn16D2M cut to its first DIST_SYN_N points (``syn``), round robin,
+    ``count()``: counts equal the one-card engine's on the same points up to
     the boundary band (each shard runs its own REORDER); only K1's fused
     count step launches, once per chunk.  CoocTexture: at 1 worker counts
     ``==`` phase 4's indexed count(); at DIST_WORKERS workers under both
     assignments counts equal each other and phase 4's up to the band;
     ``self_join_pairs`` (row sums equal the counts, the pair set phase 4's
     up to the band; K1's fused count step once per count chunk, K2's fused
-    pairs step twice per pairs chunk); kNN of every point from
-    DIST_KNN_EPS0, DIST_KNN_SAMPLE rows against the float64 top-k; a
+    pairs step twice per pairs chunk); kNN of every point of the first
+    DIST_KNN_N from DIST_KNN_EPS0, DIST_KNN_SAMPLE rows against the float64
+    top-k; a
     dense-tier count (only the dense fused count step).  Returns the
     phase's launches per kernel, and the results phase 9 is held to:
     Syn16D2M's 4-worker counts, CoocTexture's 4-worker round-robin counts
@@ -2303,7 +2324,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     import torch.distributed as dist
 
     from repro_torch import obs
-    from repro_torch.core import DistributedSelfJoinEngine, SelfJoinConfig
+    from repro_torch.core import DistributedSelfJoinEngine, SelfJoinConfig, SelfJoinEngine
     from repro_torch.core.distributed import ring_self_join_counts
     from repro_torch.kernels import dense_tile, distance_tile, flash_attention
 
@@ -2321,6 +2342,11 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
                       f"counts differ beyond the eps boundary at eps={eps}")
         return int(rows.size)
 
+    # the Syn16D2M cut's yardstick, before the counters start: the one-card engine's count
+    t0 = time.perf_counter()
+    syn_counts = SelfJoinEngine(syn, SelfJoinConfig(eps=SYN_EPS)).count().counts
+    yardstick_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     for mod in mods:
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
@@ -2333,7 +2359,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
                         "and the ring transport ran on a one-rank NCCL group (no point-to-point op); the fused "
                         "ring (phase 9) likewise, its 4 ranks being gloo processes on the one card"}
 
-    # Syn16D2M, uncut, round robin
+    # Syn16D2M, its first DIST_SYN_N points, round robin
     t0 = time.perf_counter()
     de = DistributedSelfJoinEngine(syn, SelfJoinConfig(eps=SYN_EPS), num_workers=DIST_WORKERS)
     build_s = time.perf_counter() - t0
@@ -2348,7 +2374,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     only_launched(grew, {SCATTER[0]: st.num_chunks}, f"the Syn16D2M distributed count ({st.num_chunks} chunks)")
     check(cap.dropped == 0, f"the obs capture dropped {cap.dropped} events")
     peak = torch.cuda.max_memory_allocated()
-    check(res.counts.shape == syn_counts.shape and (res.counts >= 1).all(), "Syn16D2M distributed counts malformed")
+    check(res.counts.shape == (syn.shape[0],) and (res.counts >= 1).all(), "Syn16D2M distributed counts malformed")
     syn_pts = torch.from_numpy(syn).cuda()
     diffs = band(syn_pts, np.nonzero(res.counts != syn_counts)[0], SYN_EPS, res.counts, syn_counts)
     del syn_pts
@@ -2357,14 +2383,15 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     loads_s = time.perf_counter() - t0
     rounds = ring_rounds(cap)
     rec["syn16d2m"] = {
-        "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": None, "assignment": de.assignment,
-        "shard_build_s": build_s, "count_s": count_s,
+        "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": f"the first {syn.shape[0]:,} of 2,000,000 points",
+        "assignment": de.assignment, "shard_build_s": build_s, "count_s": count_s,
         "host_plan_s": sum(r["host_plan_s"] for r in rounds), "count_loop_s": sum(r["count_loop_s"] for r in rounds),
         "rounds": rounds, "chunks": st.num_chunks, "tile_pairs": st.num_tile_pairs_evaluated,
         "candidates": st.num_candidates, "candidates_dense": st.num_candidates_dense,
         "candidate_filter_ratio": st.candidate_filter_ratio, "comm_elements": st.comm_elements,
         "results": st.num_results, "worker_loads": loads.tolist(), "worker_loads_s": loads_s,
-        "diffs_vs_phase3": diffs, "peak_device_bytes": peak, "launches": {k: v for k, v in grew.items() if v},
+        "one_card_yardstick_s": yardstick_s, "diffs_vs_one_card": diffs, "peak_device_bytes": peak,
+        "launches": {k: v for k, v in grew.items() if v},
     }
     held = {"syn_counts": res.counts}
     del de, res
@@ -2427,21 +2454,24 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
     held.update(cooc_counts=counts["round_robin"], cooc_pairs=rp.pairs)
     del rp, odd
 
-    # kNN of every point
+    # kNN of every point of the first DIST_KNN_N
+    dk = DistributedSelfJoinEngine(cooc[:DIST_KNN_N], cfg, num_workers=DIST_WORKERS)
     before = read()
     with obs.capture(capacity=1 << 20) as kcap:
         t0 = time.perf_counter()
-        kn = de.knn(DIST_KNN_K, eps0=DIST_KNN_EPS0)
+        kn = dk.knn(DIST_KNN_K, eps0=DIST_KNN_EPS0)
         knn_s = time.perf_counter() - t0
     passes_s = sum(e.dur_us for e in kcap.spans("ring.round", "ring")) / 1e6
     plans_s = sum(e.dur_us for e in kcap.spans("engine.prepare_query")) / 1e6
     grew = launched_since(before, *mods)
     check(set(k for k, v in grew.items() if v) == {SCATTER[0], PAIRS[0]}, f"CoocTexture distributed kNN launched {grew}")
-    check(kn.eps_rounds <= 3 and kn.indices.shape == (n, DIST_KNN_K) and (kn.indices >= 0).all(),
+    check(kn.eps_rounds <= 3 and kn.indices.shape == (DIST_KNN_N, DIST_KNN_K) and (kn.indices >= 0).all(),
           f"CoocTexture distributed kNN: {kn.eps_rounds} rounds, indices {kn.indices.shape}")
-    bad, ulps = check_knn(torch, np, cpts, kn, rng.choice(n, size=DIST_KNN_SAMPLE, replace=False), DIST_KNN_K,
+    bad, ulps = check_knn(torch, np, cpts[:DIST_KNN_N], kn,
+                          rng.choice(DIST_KNN_N, size=DIST_KNN_SAMPLE, replace=False), DIST_KNN_K,
                           "CoocTexture distributed kNN")
-    out["knn"] = {"k": DIST_KNN_K, "eps0": DIST_KNN_EPS0, "eps_used": kn.eps_used, "eps_rounds": kn.eps_rounds,
+    out["knn"] = {"points": DIST_KNN_N, "k": DIST_KNN_K, "eps0": DIST_KNN_EPS0, "eps_used": kn.eps_used,
+                  "eps_rounds": kn.eps_rounds,
                   "final_pairs": kn.stats.num_results, "wall_s": knn_s,
                   # the candidate passes' host plans, the rest of their blocks (count and pairs
                   # loops, the copies and decode of the pairs), and what follows the passes (top-k)
@@ -2450,7 +2480,7 @@ def phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs,
                   "sampled": DIST_KNN_SAMPLE,
                   "rows_off_at_boundary": bad, "max_distance_ulps": ulps,
                   "launches": {k: v for k, v in grew.items() if v}}
-    del kn, engines, de
+    del kn, dk, engines, de
 
     # the dense tier
     t0 = time.perf_counter()
@@ -2687,8 +2717,9 @@ def fused_rank_main(rank, tmp):
               f"rank {rank}: the Syn16D2M re-run differs or built its program again")
         payload = pack["args"][7:]
         out["syn16d2m"] = {
-            "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": None, "assignment": de.assignment,
-            "count_s": count_s, "split": fused_split(cap), "synced_run": {"wall_s": synced_s, **fused_split(scap)},
+            "points": int(syn.shape[0]), "eps": SYN_EPS, "cut": f"the first {syn.shape[0]:,} of 2,000,000 points",
+            "assignment": de.assignment, "count_s": count_s, "split": fused_split(cap),
+            "synced_run": {"wall_s": synced_s, **fused_split(scap)},
             "chunks_per_round": int(pack["n_chunks"]), "chunks_with_work": int((pack["args"][6] > 0).sum()),
             "tile_pairs": res.stats.num_tile_pairs_evaluated, "results": res.stats.num_results,
             "payload_bytes": sum(int(x.nelement()) * x.element_size() for x in payload),
@@ -2790,8 +2821,9 @@ def phase_fused(torch, np, syn, cooc, cooc_counts, held, seed):
     """Phase 9, the device-fused ring (``DistributedSelfJoinEngine(...,
     fused=True)``), with its own launch counters: (a) a one-rank NCCL group
     in this process on CoocTexture (``fused_one_rank``), (b) FUSED_RANKS
-    gloo processes on the one card, Syn16D2M uncut and CoocTexture
-    (``fused_four_ranks``), held to phase 8's host-driven results."""
+    gloo processes on the one card, phase 8's Syn16D2M cut (``syn``) and
+    CoocTexture (``fused_four_ranks``), held to phase 8's host-driven
+    results."""
     import os
     import tempfile
 
@@ -3193,6 +3225,11 @@ CONSIST_CAPACITY = 8.0                 # (e)'s MoE capacity factor against forwa
 
 def rel_err(got, want):
     return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+def rel_err32(got, want):
+    """``rel_err`` in fp32, for leaves of GBs."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
 
 
 def model_twin(torch, serve, M, cfg, params, device, seed, forced=None):
@@ -3609,9 +3646,9 @@ TRAIN_HP = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}   # (a)'s AdamW (s
 TRAIN_BATCH, TRAIN_SEQ = 2, 40          # (a): three 16-row query / key chunks, the last padded
 TRAIN_CE_CHUNK = 200                    # (a): the reduced vocab of 512 in three chunks, the last overlapping
 XLSTM_TRAIN = ["--arch", "xlstm_125m", "--full-config", "--batch", "8", "--seq", "1024", "--dedup",
-               "--device", "cuda", "--ckpt-every", "2"]   # (b): launch/train's default arch, uncut
+               "--device", "cuda", "--ckpt-every", "1"]   # (b): launch/train's default arch, uncut
 XLSTM_PARAMS = 102_425_160              # the reference's count_params_analytic at xlstm-125m
-XLSTM_STEPS = 4
+XLSTM_STEPS = 2                         # each step host-bound by the sLSTM loop
 RESUME_TOL = 1e-4                       # (b): resumed against uninterrupted, max|diff| / max|ref| (the
                                         # embedding's scatter-add on the card is not bit-deterministic)
 RG_ARCH = "recurrentgemma_2b"           # (c): uncut, bf16 activations, remat="block", flash_remat
@@ -3718,9 +3755,9 @@ def checkpoint_params(torch, M, configs, ckpt_dir, step):
 
 def model_train_xlstm(torch, M, configs, train):
     """(b): xlstm-125m uncut through ``launch/train.main`` with --dedup:
-    XLSTM_STEPS uninterrupted steps (a checkpoint every 2), then half of
+    XLSTM_STEPS uninterrupted steps (a checkpoint every step), then half of
     them in a second directory and a resume to XLSTM_STEPS; final losses
-    and step-4 params within RESUME_TOL."""
+    and the last step's params within RESUME_TOL."""
     import contextlib
     import io
 
@@ -3741,8 +3778,9 @@ def model_train_xlstm(torch, M, configs, train):
         runs[name] = {"loss": loss, "wall_s": time.perf_counter() - t0, "steps": n,
                       "peak_device_bytes": torch.cuda.max_memory_allocated(), "log": buf.getvalue().splitlines()}
         check(math.isfinite(loss), f"xlstm-125m's {name} run: loss {loss}")
-    check(any(line.startswith("resumed from step 2 (data cursor 2)") for line in runs["resumed"]["log"]),
-          "the second xlstm-125m run did not resume from step 2")
+    half = XLSTM_STEPS // 2
+    check(any(line.startswith(f"resumed from step {half} (data cursor {half})") for line in runs["resumed"]["log"]),
+          f"the second xlstm-125m run did not resume from step {half}")
     for name, run in runs.items():
         check(any(line.startswith("dedup: kept ") for line in run["log"]), f"xlstm-125m's {name} run: no dedup line")
     loss_err = abs(runs["resumed"]["loss"] - runs["whole"]["loss"]) / abs(runs["whole"]["loss"])
@@ -3754,7 +3792,7 @@ def model_train_xlstm(torch, M, configs, train):
           f"uninterrupted (> {RESUME_TOL})")
     first = checkpoint_params(torch, M, configs, root / "split", XLSTM_STEPS // 2)
     check(max(rel_err(a, b) for a, b in zip(M.tree_leaves(split), M.tree_leaves(first))) > 0,
-          "xlstm-125m's params did not move from step 2 to step 4")
+          f"xlstm-125m's params did not move from step {XLSTM_STEPS // 2} to step {XLSTM_STEPS}")
     del whole, split, first
     shutil.rmtree(root, ignore_errors=True)
     return {"params": XLSTM_PARAMS, "argv": XLSTM_TRAIN, "runs": runs, "resume_loss_rel": loss_err,
@@ -4007,8 +4045,23 @@ SHARD_ARCH = "recurrentgemma_2b"          # (a): uncut, its params, caches and t
 SHARD_MESH = (1, 1)                       # ("data", "model") on a one-rank NCCL group: see sharded_serve
 SHARD_BATCH, SHARD_PROMPT, SHARD_NEW = 4, 128, 9   # a prefill of 4 prompts, then 8 greedy decode steps
 SHARD_TOL = 2.0 ** -8                     # the last logits: one bf16 rounding, max|diff| / max|ref|
-DRYRUN_CELLS = (("xlstm_125m", "long_500k", "--multi-pod"), ("gemma3_12b", "decode_32k", "--both-meshes"))
+CUT = ("--cut-depth", "--seq", "2048")    # one block of each kind, two key chunks: the full cells lower for minutes
+DRYRUN_CELLS = (("xlstm_125m", "long_500k", ("--multi-pod",)), ("gemma3_12b", "decode_32k", ("--both-meshes",)),
+                # one cell per fault class the DTensor seams had: the experts (deepseek-v2, arctic),
+                # strided head shards on both sides (phi3), the recurrent projections (xlstm),
+                # and a train cell (qwen3: a KV head count the model axis does not divide, the CE)
+                ("deepseek_v2_236b", "decode_32k", ()), ("arctic_480b", "decode_32k", ()),
+                ("phi3_mini_3p8b", "prefill_32k", CUT), ("xlstm_125m", "prefill_32k", CUT),
+                ("qwen3_32b", "train_4k", CUT))
+DRYRUN_MODEL_CELLS = 8                    # gemma3's cell on both meshes
 DRYRUN_DEADLINE_S = 300.0                 # for the dry-runs together, from their start
+# cells whose useful FLOPs fraction is below 0.5 on this tree, each with its reason (PERF.md §5 names them)
+LOW_USEFUL = {
+    "deepseek_v2_236b__decode_32k__pod1": "MoE decode: 128 tokens in 32 routing groups fill every expert's "
+                                          "minimum capacity of 8 with padding (the reference's 0.139)",
+    "arctic_480b__decode_32k__pod1": "MoE decode: the same capacity padding, 128 experts (the reference's 0.033)",
+    "xlstm_125m__long_500k__pod2": "batch 1 on 512 chips: every data shard but one idles (the reference's 0.069)",
+}
 ROOF_DECODE_ITERS, ROOF_TRAIN_ITERS = 5, 2   # (c): timed calls after one warm-up
 
 
@@ -4089,6 +4142,127 @@ def sharded_serve(torch, configs, M, serve, tmp, seed):
     return rec
 
 
+TRAIN_SHARD_ARCH = "deepseek_v2_236b"    # (d): full width, its dense layer and one MoE layer, bf16
+TRAIN_SHARD_REPEATS = (1, 1)
+TRAIN_SHARD_BATCH, TRAIN_SHARD_SEQ = 1, 1024
+TRAIN_SHARD_TOL = 2e-2                    # bf16, as the port's train tests hold bf16 steps
+
+
+def sharded_train(torch, configs, M, serve, tmp, seed):
+    """(d): one ``make_train_step`` step of TRAIN_SHARD_ARCH at full width
+    (cut in depth to TRAIN_SHARD_REPEATS) on DTensor params, AdamW state and
+    batch on the one-rank NCCL mesh of (a), under ``implicit_replication()``,
+    against the plain step from the same weights: the loss, grad_norm and
+    every updated param, m and v leaf within TRAIN_SHARD_TOL.  Then the
+    DTensor state through ``save_checkpoint`` and ``restore_checkpoint(...,
+    shardings=)`` onto the mesh, and without ``shardings`` onto plain CUDA
+    tensors, bit for bit.  As in (a), every placement is a replica on one
+    rank: this checks DTensor autograd, ``_FlashRemat``, the blocked CE,
+    remat and the in-place AdamW on CUDA DTensors, not a shard; the shards
+    are checked on the CPU's 2 x 2 gloo mesh
+    (``tests/test_torch_sharded_train.py``).  The plain step's results wait
+    in host memory while the sharded step runs: two copies of the state do
+    not fit the card beside a step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.sharding import batch_spec, distribute, named_shardings, param_specs
+    from repro_torch.train import OptHParams, adamw_init, make_train_step, restore_checkpoint, save_checkpoint
+
+    cfg = cut_depth(configs.get_config(TRAIN_SHARD_ARCH), TRAIN_SHARD_REPEATS)
+    hp = OptHParams(lr=3e-4, warmup_steps=1)
+    step = make_train_step(cfg, hp)
+    batch = serve.make_batch(cfg, TRAIN_SHARD_BATCH, TRAIN_SHARD_SEQ, "cuda", seed)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    host0 = M.tree_map(lambda t: t.to("cpu", copy=True), params)
+    opt = adamw_init(params, state_dtype=cfg.opt_state_dtype)
+    start.record()
+    params, opt, metrics = step(params, opt, batch)
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": sum(t.numel() for t in M.tree_leaves(params)),
+           "param_dtype": cfg.param_dtype, "opt_state_dtype": cfg.opt_state_dtype, "batch": TRAIN_SHARD_BATCH,
+           "seq": TRAIN_SHARD_SEQ, "mesh": dict(zip(("data", "model"), SHARD_MESH)), "backend": "nccl",
+           "plain_step_ms": start.elapsed_time(end), "plain_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "timing": "CUDA events, one step each",
+           "note": "one rank: every placement is a replica (DTensor on CUDA tensors, not a shard)"}
+    want = {"loss": metrics["loss"].float().cpu(), "grad_norm": metrics["grad_norm"].float().cpu(),
+            "state": M.tree_map(lambda t: t.cpu(), {"params": params, "m": opt["m"], "v": opt["v"]})}
+    del params, opt, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "train_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", SHARD_MESH, mesh_dim_names=("data", "model"))
+        params = M.tree_map(lambda t: t.to("cuda"), host0)
+        del host0
+        specs = param_specs(params, mesh, fsdp=True)
+        sp = distribute(params, specs, mesh, src_data_rank=None)
+        sb = distribute(batch, batch_spec(batch, mesh), mesh, src_data_rank=None)
+        del params
+        sopt = adamw_init(sp, state_dtype=cfg.opt_state_dtype)
+        start.record()
+        with implicit_replication():
+            sp, sopt, smetrics = step(sp, sopt, sb)
+        end.record()
+        torch.cuda.synchronize()
+        rec["dtensor_step_ms"] = start.elapsed_time(end)
+        rec["dtensor_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        got = {"params": sp, "m": sopt["m"], "v": sopt["v"]}
+        check(all(hasattr(t, "placements") for t in M.tree_leaves(got)), "a param or moment is not a DTensor")
+        rec["loss"] = [float(smetrics["loss"].full_tensor()), float(want["loss"])]
+        rec["loss_err"] = rel_err(smetrics["loss"].full_tensor().float().cpu(), want["loss"])
+        rec["grad_norm_err"] = rel_err(smetrics["grad_norm"].float().cpu(), want["grad_norm"])
+        worst = {}
+        for part in ("params", "m", "v"):
+            errs = [rel_err32(g.full_tensor(), w.to("cuda"))
+                    for g, w in zip(M.tree_leaves(got[part]), M.tree_leaves(want["state"][part]))]
+            worst[part] = max(errs)
+        rec["leaf_err"], rec["tol"] = worst, TRAIN_SHARD_TOL
+        check(rec["loss_err"] <= TRAIN_SHARD_TOL and rec["grad_norm_err"] <= TRAIN_SHARD_TOL
+              and max(worst.values()) <= TRAIN_SHARD_TOL,
+              f"the DTensor train step is off the plain one: loss {rec['loss_err']:.3g}, grad_norm "
+              f"{rec['grad_norm_err']:.3g}, leaves {worst} (tol {TRAIN_SHARD_TOL})")
+        del want
+        # the sharded state through a checkpoint, onto the mesh and onto plain tensors
+        ckpt = tmp / "train_ckpt"
+        state = {"params": sp, "opt": sopt}
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt), 1, state)
+        rec["save_s"] = time.perf_counter() - t0
+        sh = named_shardings(specs, mesh)
+        restored = {}
+        for how, kw in (("mesh", {"shardings": {"params": sh, "opt": {"m": sh, "v": sh, "step": None}}}),
+                        ("plain", {})):
+            t0 = time.perf_counter()
+            tree, st, _ = restore_checkpoint(str(ckpt), state, device="cuda", **kw)
+            rec[f"restore_{how}_s"] = time.perf_counter() - t0
+            same = all(torch.equal(a.full_tensor() if hasattr(a, "full_tensor") else a, b.full_tensor())
+                       for a, b in zip(M.tree_leaves(tree["params"]) + M.tree_leaves(tree["opt"]["m"])
+                                       + M.tree_leaves(tree["opt"]["v"]),
+                                       M.tree_leaves(sp) + M.tree_leaves(sopt["m"]) + M.tree_leaves(sopt["v"])))
+            dtensors = sum(hasattr(t, "placements") for t in M.tree_leaves(tree["params"]))
+            check(st == 1 and same, f"the checkpoint restored onto {how} is not the saved state bit for bit")
+            check(dtensors == (len(M.tree_leaves(sp)) if how == "mesh" else 0),
+                  f"the checkpoint restored onto {how} holds {dtensors} DTensor params")
+            restored[how] = True
+            del tree
+        rec["restored_bit_for_bit"] = restored
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp / "train_ckpt", ignore_errors=True)
+    del sp, sopt, sb, got, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def shard_dir():
     """Phase 13's directory under build/, emptied."""
     tmp = ROOT / "build" / "model_shard"
@@ -4099,15 +4273,20 @@ def shard_dir():
 
 def dryruns(tmp):
     """(b): the dry-runs, each a process of its own on fake tensors (the
-    host's cores, no card work), started together and waited for (killed
-    past DRYRUN_DEADLINE_S); prints each cell's terms on a line of its own."""
+    host's cores, no card work): the model cells, and the ring's six cells
+    one process each, started together and waited for (killed past
+    DRYRUN_DEADLINE_S); prints each cell's terms on a line of its own."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, flag,
-             "--device", "cuda", "--out", str(tmp / "dryrun_torch")] for arch, shape, flag in DRYRUN_CELLS]
-    cmds.append([sys.executable, "-m", "repro_torch.launch.selfjoin_dryrun", "--device", "cuda",
-                 "--out", str(tmp / "selfjoin_ring_torch.json")])
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, *flags,
+             "--device", "cuda", "--out", str(tmp / "dryrun_torch")] for arch, shape, flags in DRYRUN_CELLS]
+    from repro_torch.launch.selfjoin_dryrun import MESHES, VARIANTS
+
+    ring_tags = [(mesh, variant) for mesh in MESHES for variant in VARIANTS]
+    cmds += [[sys.executable, "-m", "repro_torch.launch.selfjoin_dryrun", "--device", "cuda", "--mesh", mesh,
+              "--variant", variant, "--out", str(tmp / f"selfjoin_ring_torch__{mesh}__{variant}.json")]
+             for mesh, variant in ring_tags]
     t_start = time.perf_counter()
     procs = []
     try:
@@ -4135,16 +4314,26 @@ def dryruns(tmp):
     for path in sorted((tmp / "dryrun_torch").glob("*.json")):
         d = json.loads(path.read_text())
         cells.append({"phase": "dryrun_cell", "cell": path.stem, **{k: d.get(k) for k in keys}})
-    ring = json.loads((tmp / "selfjoin_ring_torch.json").read_text())
+    ring = {}
+    for mesh, variant in ring_tags:
+        ring.update(json.loads((tmp / f"selfjoin_ring_torch__{mesh}__{variant}.json").read_text()))
     for tag, d in ring.items():
         cells.append({"phase": "dryrun_cell", "cell": f"{d['arch']}__{d['shape']}__{tag}",
                       **{k: d.get(k) for k in keys}})
-    check(len(cells) == 9, f"the dry-runs wrote {len(cells)} cells, not 3 model cells and 6 ring cells")
+    models = len(cells) - len(ring)
+    check(models == DRYRUN_MODEL_CELLS and len(ring) == 6,
+          f"the dry-runs wrote {models} model cells and {len(ring)} ring cells, "
+          f"not {DRYRUN_MODEL_CELLS} and 6")
     for cell in cells:
         check(all(math.isfinite(cell[k]) and cell[k] >= 0 for k in ("compute_s", "memory_s", "collective_s")),
               f"{cell['cell']}: a roofline term is not a finite time")
         emit(cell)
-    return {"cells": len(cells), "wall_s": time.perf_counter() - t_start}
+    for cell in cells[:models]:
+        check(cell["useful_flops_fraction"] >= 0.5 or cell["cell"] in LOW_USEFUL,
+              f"{cell['cell']}: useful FLOPs fraction {cell['useful_flops_fraction']:.3f} < 0.5, "
+              "and LOW_USEFUL gives no reason")
+    return {"cells": len(cells), "wall_s": time.perf_counter() - t_start,
+            "lower_s": {c["cell"]: c["lower_s"] for c in cells[:models]}}
 
 
 def roofline_case(torch, count_ops, fn, iters):
@@ -4217,7 +4406,9 @@ def phase_model_shard(torch, seed):
     together as processes on the host's cores, waited for and their cells
     printed one per line; (c) the roofline against the card; (a) the
     sharding rules on the card (SHARD_ARCH as DTensors against the
-    unsharded serve).  No kernel may launch: the models call none."""
+    unsharded serve); (d) a DTensor train step at full width against the
+    plain one, and its state through a checkpoint.  No kernel may launch:
+    the models call none."""
     from repro_torch import configs
     from repro_torch.kernels import dense_tile, distance_tile, flash_attention
     from repro_torch.launch import serve
@@ -4240,6 +4431,9 @@ def phase_model_shard(torch, seed):
     t0 = time.perf_counter()
     rec["sharded_serve"] = sharded_serve(torch, configs, M, serve, tmp, seed)
     rec["sharded_serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["sharded_train"] = sharded_train(torch, configs, M, serve, tmp, seed)
+    rec["sharded_train_s"] = time.perf_counter() - t0
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     check(not any(launches.values()), f"phase 13 launched {({k: v for k, v in launches.items() if v})}")
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -4587,11 +4781,12 @@ def main() -> int:
     # the serving path: its own counters, from 0 (phase 3-4's line stays as read above)
     serving = phase_serving(torch, np, syn_engine, syn, syn_counts, cooc_engine, dense_engine, args.seed)
     # the distributed tier: its own counters, from 0
-    distributed, held = phase_distributed(torch, np, syn, syn_counts, cooc, cooc_counts, cooc_pairs, args.seed)
+    # phases 8-9: Syn16D2M cut to its first DIST_SYN_N points
+    distributed, held = phase_distributed(torch, np, syn[:DIST_SYN_N], cooc, cooc_counts, cooc_pairs, args.seed)
     for name in (SCATTER[0], PAIRS[0], "dense_count_scatter"):
         check(distributed[name] > 0, f"{name} was never launched on the distributed path")
     # the fused ring: its own counters, from 0, its ranks' summed
-    fused_ring = phase_fused(torch, np, syn, cooc, cooc_counts, held, args.seed)
+    fused_ring = phase_fused(torch, np, syn[:DIST_SYN_N], cooc, cooc_counts, held, args.seed)
     del held
     check({k for k, v in fused_ring.items() if v} == {SCATTER[0], PAIRS[0], "tile_pair_distance"},
           f"the fused ring launched {({k: v for k, v in fused_ring.items() if v})}: not K1's fused count step, "

@@ -25,10 +25,18 @@ and ``output_bytes_per_chip`` those of the step's outputs.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k [--device cpu]
   python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes] [--skip-done]
+  python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape prefill_32k --cut-depth --seq 2048
+
+Each cell lowers in seconds (decode) to minutes on one CPU core
+(train_4k: 0.5-3 min, xlstm's 10-18; prefill_32k, whose flash loop runs
+64 x 32 blocks per layer on each rank where the heads shard: 1-22 min),
+so run the whole sweep a few processes at a time, one ``--arch`` each.  ``--cut-depth`` and ``--seq`` cut a cell to one block
+of each kind and a shorter sequence, a quick check of the sharded path.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -82,14 +90,25 @@ def _fake(meta_tree, device):
     return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device=device), meta_tree)
 
 
-def lower_cell(arch: str, shape: str, multi_pod: bool, device="cuda"):
+def cut_depth(cfg):
+    """``cfg`` with every layer group (the encoder's too) repeated once:
+    one block of each kind at full width."""
+    over = {"groups": tuple((pattern, 1) for pattern, _ in cfg.groups)}
+    if cfg.encoder_groups is not None:
+        over["encoder_groups"] = tuple((pattern, 1) for pattern, _ in cfg.encoder_groups)
+    return dataclasses.replace(cfg, **over)
+
+
+def lower_cell(arch: str, shape: str, multi_pod: bool, device="cuda", *, cfg=None, seq=None):
     """Run one cell under the counter on the production mesh (the default
-    group must be a fake one of its size); returns (report dict, OpCosts)."""
+    group must be a fake one of its size); returns (report dict, OpCosts).
+    ``cfg`` replaces ``arch``'s config (``cut_depth``) and ``seq`` the
+    shape's sequence length (``--cut-depth``, ``--seq``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
-    cfg = get_config(arch)
-    cell = S.input_specs(cfg, shape)
+    cfg = cfg or get_config(arch)
+    cell = S.input_specs(cfg, shape, seq=seq)
     if cell.skip_reason:
         return {"arch": arch, "shape": shape, "skipped": cell.skip_reason}, None
     dev = resolve_device(device)
@@ -135,7 +154,10 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, device="cuda"):
         arg_bytes = _local_bytes([a for a in args if not isinstance(a, int)])
 
         t0 = time.time()
-        with implicit_replication(), count_ops() as counter:
+        # prefill and decode keep nothing for a backward, as the reference's
+        # jitted steps do
+        grad = torch.enable_grad() if cell.kind == "train" else torch.no_grad()
+        with implicit_replication(), grad, count_ops() as counter:
             out = step_fn(*args)
         t_lower = time.time() - t0
         out_bytes = _local_bytes(out)
@@ -170,6 +192,10 @@ def main(argv=None):
     ap.add_argument("--skip-done", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cut-depth", action="store_true",
+                    help="every layer group repeated once (cell tag <shape>-cut)")
+    ap.add_argument("--seq", type=int, default=None, help="the sequence length in place of the shape's "
+                    "(cell tag <shape>-s<seq>)")
     args = ap.parse_args(argv)
 
     resolve_device(args.device)
@@ -183,14 +209,16 @@ def main(argv=None):
         fake_world(512 if mp else 256)
         for arch in archs:
             for shape in shapes:
-                tag = f"{canonical(arch)}__{shape}__{'pod2' if mp else 'pod1'}"
+                variant = ("-cut" if args.cut_depth else "") + (f"-s{args.seq}" if args.seq else "")
+                tag = f"{canonical(arch)}__{shape}{variant}__{'pod2' if mp else 'pod1'}"
                 path = os.path.join(args.out, tag + ".json")
                 if args.skip_done and os.path.exists(path):
                     print("skip (done):", tag)
                     continue
                 print("=== cell:", tag, flush=True)
                 try:
-                    d, _ = lower_cell(arch, shape, mp, device=args.device)
+                    cfg = cut_depth(get_config(arch)) if args.cut_depth else None
+                    d, _ = lower_cell(arch, shape, mp, device=args.device, cfg=cfg, seq=args.seq)
                     with open(path, "w") as f:
                         json.dump(d, f, indent=1)
                     if "skipped" in d:

@@ -24,6 +24,10 @@ The port's ring rotates |p| - 1 times (no rotation after the last round,
 ``ring_scan``); the reference's ``ppermute`` scan rotates |p| times.
 
 Usage: python -m repro_torch.launch.selfjoin_dryrun [--points 16777216] [--dims 32] [--device cpu]
+           [--mesh pod1|pod2 ...] [--variant base|overlap|bf16 ...]
+
+``--mesh`` and ``--variant`` pick cells (default: all six); the cells are
+independent, so a caller may run them as processes of their own.
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ from repro_torch.core.snapshot import resolve_device
 from repro_torch.launch.dryrun import fake_world
 from repro_torch.launch.mesh import make_production_mesh, mesh_desc
 from repro_torch.roofline import count_ops, roofline_terms
+
+
+MESHES = ("pod1", "pod2")
+VARIANTS = ("base", "overlap", "bf16")
 
 
 def ring_fn(mesh, axes, eps, *, variant="base", row_block=2048):
@@ -108,12 +116,19 @@ def main(argv=None):
     ap.add_argument("--eps", type=float, default=0.08)
     ap.add_argument("--out", default="experiments/selfjoin_ring_torch.json")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", action="append", choices=MESHES, help="repeatable; default both")
+    ap.add_argument("--variant", action="append", choices=VARIANTS, help="repeatable; default all")
     args = ap.parse_args(argv)
 
     out = {}
-    for multi_pod in (False, True):
-        for variant in ("base", "overlap", "bf16"):
-            tag = f"{'pod2' if multi_pod else 'pod1'}__{variant}"
+    for mesh in MESHES:
+        if args.mesh and mesh not in args.mesh:
+            continue
+        multi_pod = mesh == "pod2"
+        for variant in VARIANTS:
+            if args.variant and variant not in args.variant:
+                continue
+            tag = f"{mesh}__{variant}"
             d = run_cell(args.points, args.dims, args.eps, multi_pod, variant, device=args.device)
             out[tag] = d
             print(

@@ -54,10 +54,12 @@ def applicable(cfg, shape_name: str) -> Optional[str]:
     return None
 
 
-def input_specs(cfg, shape_name: str) -> CellSpec:
-    """Meta stand-ins for every model input of this cell."""
+def input_specs(cfg, shape_name: str, seq: Optional[int] = None) -> CellSpec:
+    """Meta stand-ins for every model input of this cell; ``seq`` replaces
+    the shape's sequence length (a shortened cell)."""
     info = SHAPES[shape_name]
-    kind, seq, batch = info["kind"], info["seq"], info["batch"]
+    kind, batch = info["kind"], info["batch"]
+    seq = seq or info["seq"]
     i32 = torch.int32
     b: Dict[str, Any] = {}
     if kind == "train":

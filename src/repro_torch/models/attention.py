@@ -79,11 +79,46 @@ def _flash_layout(q, k, v, qpos, kpos, q_chunk, k_chunk):
     return (_pad_seq(q, pad_q), _pad_seq(k, pad_k), _pad_seq(v, pad_k), qpos_p, kpos_p, qc, kc)
 
 
+# The block products as the einsums they are, each one ``bmm`` on the
+# operands laid out as ``torch.einsum`` lays them out (bit for bit the
+# einsum's result): einsum's own decomposition dispatches some twenty ops
+# per call, which the dry-runs' fake tensors pay for at every block.
+
+def _qk(q, k):
+    """einsum("bqkgd,bskd->bkgqs", q, k)."""
+    b, qc, kv, g, d = q.shape
+    kc = k.shape[1]
+    return torch.bmm(q.permute(0, 2, 3, 1, 4).reshape(b * kv, g * qc, d),
+                     k.permute(0, 2, 3, 1).reshape(b * kv, d, kc)).view(b, kv, g, qc, kc)
+
+
+def _pv(p, v):
+    """einsum("bkgqs,bskd->bkgqd", p, v)."""
+    b, kv, g, qc, kc = p.shape
+    return torch.bmm(p.reshape(b * kv, g * qc, kc),
+                     v.permute(0, 2, 1, 3).reshape(b * kv, kc, v.shape[-1])).view(b, kv, g, qc, v.shape[-1])
+
+
+def _pt_do(p, do):
+    """einsum("bkgqs,bkgqd->bskd", p, do)."""
+    b, kv, g, qc, kc = p.shape
+    return torch.bmm(p.permute(0, 1, 4, 2, 3).reshape(b * kv, kc, g * qc),
+                     do.reshape(b * kv, g * qc, do.shape[-1])).view(b, kv, kc, do.shape[-1]).permute(0, 2, 1, 3)
+
+
+def _ds_q(ds, q):
+    """einsum("bkgqs,bqkgd->bskd", ds, q)."""
+    b, kv, g, qc, kc = ds.shape
+    return torch.bmm(ds.permute(0, 1, 4, 2, 3).reshape(b * kv, kc, g * qc),
+                     q.permute(0, 2, 3, 1, 4).reshape(b * kv, g * qc, q.shape[-1])
+                     ).view(b, kv, kc, q.shape[-1]).permute(0, 2, 1, 3)
+
+
 def _scores(qb, kb, qposb, kposb, causal, window, scale):
     """One (q chunk, k chunk) block's fp32 scores (B, KV, G, qc, kc), masked
     keys at NEG_INF, and the mask (qc, kc)."""
     mask = _mask(qposb, kposb, causal, window)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+    s = _qk(qb, kb) * scale
     return s.masked_fill(~mask, NEG_INF), mask
 
 
@@ -110,7 +145,7 @@ def _flash_forward(q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, scale)
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb)
+            pv = _pv(p, vb)
             acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-37)
@@ -164,11 +199,11 @@ class _FlashRemat(torch.autograd.Function):
                 kb, vb = kp[:, ks].float(), vp[:, ks].float()
                 s, mask = _scores(qb, kb, qpos_p[qs], kpos_p[ks], causal, window, scale)
                 p = torch.exp(s - m[..., qs, None]) * inv_l[..., qs, None]
-                dvs[ki] = dvs[ki] + torch.einsum("bkgqs,bkgqd->bskd", p, dob)
-                ds = p * (torch.einsum("bkgqd,bskd->bkgqs", dob, vb) - delta[..., qs, None])
+                dvs[ki] = dvs[ki] + _pt_do(p, dob)
+                ds = p * (_qk(dob.permute(0, 3, 1, 2, 4), vb) - delta[..., qs, None])
                 ds = ds.masked_fill(~mask, 0.0) * scale
-                dq = dq + torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
-                dks[ki] = dks[ki] + torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+                dq = dq + _pv(ds, kb).permute(0, 3, 1, 2, 4)
+                dks[ki] = dks[ki] + _ds_q(ds, qb)
             dqs.append(dq)
         dq, dk, dv = (torch.cat(parts, dim=1) for parts in (dqs, dks, dvs))
         return (dq[:, :sq].to(q.dtype), dk[:, :sk].to(k.dtype), dv[:, :sk].to(v.dtype),
@@ -186,16 +221,97 @@ def _flash(q, k, v, qpos, kpos, *, causal: bool, window: int,
     -10**9 and padded keys at +10**9, as in the reference.  ``remat_kv``,
     as in the reference, decides the backward: set, no score block is
     saved and the backward recomputes each (``_FlashRemat``); unset,
-    autograd saves every block's (B, KV, G, qc, kc) probabilities.
+    autograd saves every block's (B, KV, G, qc, kc) probabilities.  Where
+    no input takes a gradient (prefill, serving), neither: the forward
+    alone.
     """
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])
     args = (q, k, v, qpos, kpos, causal, window, q_chunk, k_chunk, float(scale))
-    if remat_kv and torch.is_grad_enabled():
+    if remat_kv and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = _FlashRemat.apply(*args)
     else:
         out = _flash_forward(*args)[0]
     return out.to(q.dtype)
+
+
+def _is_dtensor(*ts) -> bool:
+    return any(hasattr(t, "placements") for t in ts)
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def on_head_shards(fn, q, k, v, qpos=None):
+    """``merge_last(fn(q, k, v, qpos), 3)`` with q (B, Sq, KV, G, dh) at
+    positions ``qpos`` (Sq,), k (B, Sk, KV, dk), v (B, Sk, KV, dv) and
+    ``fn``'s output (B, Sq, KV, G, dv): on plain tensors just that; on
+    DTensors ``fn`` runs on each rank's shards, attention being independent
+    per batch row, per head and per query.
+
+    DTensor has no strategy for the score ``bmm`` when the batch and a head
+    axis are both sharded (einsum flattens them into one strided shard),
+    where GSPMD reshards without a word.  So each mesh dim gets one explicit
+    placement before ``fn``.  The batch, where q, k or v shard it and the
+    mesh divides it.  The heads, on the first other mesh dim that shards a
+    head axis or is named "model" (a head count it does not divide leaves
+    them whole there): the KV heads where it divides them, else the
+    flattened KV x G heads (q, k and v held whole and each rank slicing
+    out its heads and their KV heads), else the queries (``qpos`` given:
+    each rank its rows of q, k and v whole).  The inputs a rank slices have
+    partial-sum gradients.  Anything else is replicated.  The output is
+    (B, Sq, KV x G x dv), sharded as the heads or queries were."""
+    if not _is_dtensor(q, k, v):
+        return L.merge_last(fn(q, k, v, qpos), 3)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    names = mesh.mesh_dim_names or ()
+    b, sq, kvh, g, _ = q.shape
+    h = kvh * g
+    q_pl, kv_pl, q_grad, kv_grad, out_pl = [], [], [], [], []
+    batch_split, heads, rows = 1, None, None      # heads: (first kv head, kv heads, first g, g) of this rank
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        dims = [getattr(t.placements[i], "dim", None) for t in (q, k, v) if isinstance(t, DTensor)]
+        on_heads = n > 1 and heads is None and rows is None and (
+            any(d is not None and d >= 2 for d in dims) or names[i:i + 1] == ("model",))
+        hl = h // n
+        if n > 1 and 0 in dims and b % (batch_split * n) == 0:
+            batch_split *= n
+            pl = (Shard(0), Shard(0), Shard(0), Shard(0), Shard(0))
+        elif on_heads and kvh % n == 0:
+            heads = ()
+            pl = (Shard(2), Shard(2), Shard(2), Shard(2), Shard(2))
+        elif on_heads and h % n == 0 and (g % hl == 0 or hl % g == 0):
+            c = mesh.get_local_rank(i)
+            heads = (c * hl // g, hl // g, 0, g) if hl % g == 0 else (c * hl // g, 1, c * hl % g, hl)
+            pl = (Replicate(), Replicate(), Partial(), Partial(), Shard(2))
+        elif on_heads and qpos is not None and sq > 1 and sq % n == 0:
+            c = mesh.get_local_rank(i)
+            rows = slice(c * sq // n, (c + 1) * sq // n)
+            pl = (Shard(1), Replicate(), Shard(1), Partial(), Shard(1))
+        else:
+            pl = (Replicate(),) * 5
+        for acc, x in zip((q_pl, kv_pl, q_grad, kv_grad, out_pl), pl):
+            acc.append(x)
+
+    def local(t, placements, grad):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local(grad_placements=grad)
+
+    ql, kl, vl = local(q, q_pl, q_grad), local(k, kv_pl, kv_grad), local(v, kv_pl, kv_grad)
+    if heads:
+        k0, nk, g0, ng = heads
+        ql = ql[:, :, k0:k0 + nk, g0:g0 + ng]
+        kl, vl = kl[:, :, k0:k0 + nk], vl[:, :, k0:k0 + nk]
+    if rows is not None:
+        qpos = qpos[rows]
+    out = fn(ql, kl, vl, qpos)
+    out = out.reshape(tuple(out.shape[:2]) + (-1,))
+    return L.grad_placed(DTensor.from_local(out, mesh, out_pl, run_check=False))
 
 
 def attention_plain(q, k, v, qpos, kpos, *, causal: bool, window: int,
@@ -264,12 +380,13 @@ def attention(p, x, positions, cfg, block, *, memory=None, memory_pos=None,
     b, s, _ = x.shape
     q, k, v, kpos = project_qkv(p, x, positions, cfg, block, memory=memory, memory_pos=memory_pos)
     cross = memory is not None
-    out = _flash(
-        q, k, v, positions, kpos,
+    kpos = _local(kpos)
+    out = on_head_shards(lambda q_, k_, v_, qpos_: _flash(
+        q_, k_, v_, qpos_, kpos,
         causal=causal and not cross, window=block.window if not cross else 0,
         q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, remat_kv=cfg.flash_remat,
-    )
-    y = L.dense(p["wo"], L.merge_last(out, 3))
+    ), q, k, v, _local(positions))
+    y = L.dense(p["wo"], out)
     if return_kv:
         return y, (k, v)
     return y
@@ -311,21 +428,17 @@ def attention_decode(p, x, cache, pos, cfg, block, *, memory=None):
     dims = AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
     h, kvh, dh = dims
     g = h // kvh
-    b = x.shape[0]
 
     q = L.split_last(L.dense(p["wq"], x), kvh, g, dh)
     if memory is not None:  # cross-attn: static memory, no cache update
-        sm = memory.shape[1]
+        memory = L.batch_like(memory, x)
         k = L.split_last(L.dense(p["wk"], memory), kvh, dh)
         v = L.split_last(L.dense(p["wv"], memory), kvh, dh)
         if "qnorm" in p:
             q = L.rmsnorm(p["qnorm"], q, cfg.norm_eps)
             k = L.rmsnorm(p["knorm"], k, cfg.norm_eps)
-        s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())[:, :, :, 0] / float(np.sqrt(dh))
-        w = torch.softmax(s, dim=-1)
-        out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
-        out = L.merge_last(out, 3).reshape(b, 1, h * dh).to(x.dtype)
-        return L.dense(p["wo"], out), cache
+        out = _decode_heads(lambda q_, k_, v_, _: _decode_attend(q_, k_, v_, None, dh), q, k, v)
+        return L.dense(p["wo"], out.to(x.dtype)), cache
 
     k1 = L.split_last(L.dense(p["wk"], x), kvh, dh)
     v1 = L.split_last(L.dense(p["wv"], x), kvh, dh)
@@ -345,16 +458,42 @@ def attention_decode(p, x, cache, pos, cfg, block, *, memory=None):
     cv[:, slot] = v1[:, 0].to(cv.dtype)
     cpos[slot].fill_(pos)   # a fill, not a copy from a host scalar (which would wait for the card)
 
-    s = torch.einsum(
-        "bqkgd,bskd->bkgqs", q.float(), ck.to(q.dtype).float()
-    )[:, :, :, 0] / float(np.sqrt(dh))                 # (B, KV, G, slots)
     valid = (cpos >= 0) & (cpos <= pos)
     if block.window > 0:
         valid &= cpos > (pos - block.window)
-    s = s.masked_fill(~valid[None, None, None], NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum(
-        "bkgs,bskd->bkgd", w, cv.to(q.dtype).float()
-    )
-    out = L.merge_last(out, 3).reshape(b, 1, h * dh).to(x.dtype)
-    return L.dense(p["wo"], out), cache
+    if _is_dtensor(q, ck) and not _is_dtensor(valid):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = next(t.device_mesh for t in (q, ck) if _is_dtensor(t))
+        valid = DTensor.from_local(valid, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    kv_dtype = q.dtype
+
+    def attend(q_, k_, v_, _=None):
+        valid_ = valid if _is_dtensor(q_) else _local(valid)
+        return _decode_attend(q_, k_.to(kv_dtype), v_.to(kv_dtype), valid_, dh)
+
+    out = _decode_heads(attend, q, ck, cv)
+    return L.dense(p["wo"], out.to(x.dtype)), cache
+
+
+def _decode_attend(q, k, v, valid, dh):
+    """One query per row against keys k / values v (B, Sk, KV, d): the fp32
+    softmax over the keys that ``valid`` (Sk,) keeps (all where None).
+    Returns (B, 1, KV, G, dv) fp32."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())[:, :, :, 0] / float(np.sqrt(dh))
+    if valid is not None:
+        s = s.masked_fill(~valid[None, None, None], NEG_INF)
+    w = torch.softmax(s, dim=-1)                       # (B, KV, G, Sk)
+    return torch.einsum("bkgs,bskd->bkgd", w, v.float())[:, None]
+
+
+def _decode_heads(fn, q, k, v):
+    """``fn`` over the heads, merged to (B, 1, H x dv): on shards of batch
+    and heads (``on_head_shards``), except where the keys shard their
+    head_dim (a KV head count that the mesh does not divide, as
+    ``cache_specs`` places such caches): that runs as DTensor ops, the score
+    a partial sum over head_dim shards, where gathering the cache's heads
+    would move the whole cache at every step."""
+    placements = getattr(k, "placements", None)
+    if placements is not None and any(pl.is_shard(k.ndim - 1) for pl in placements):
+        return L.merge_last(fn(q, k, v, None), 3)
+    return on_head_shards(fn, q, k, v)

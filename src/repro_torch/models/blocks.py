@@ -125,6 +125,16 @@ def _pad_slots(t, slots, fill):
     return torch.cat([t, pad], dim=1)
 
 
+def _roll_seq(t, shift):
+    """``torch.roll(t, shift, dims=1)``; a DTensor by concatenating its two
+    parts (``aten.roll`` has no DTensor strategy in every torch the port
+    runs on)."""
+    if not hasattr(t, "placements"):
+        return torch.roll(t, shift, dims=1)
+    n = t.shape[1]
+    return torch.cat([t[:, n - shift:], t[:, :n - shift]], dim=1) if shift else t
+
+
 def _kv_prefill_cache(k, v, positions, cfg, blk, cache_len):
     """Place prefill K/V (positions 0 .. s-1) into a decode cache, position
     p at slot p % slots (the ring layout of local attention), as
@@ -135,7 +145,7 @@ def _kv_prefill_cache(k, v, positions, cfg, blk, cache_len):
     pos = positions.to(torch.int32)
     if s >= slots:  # keep the last `slots` positions (ring)
         shift = (s - slots) % slots
-        k, v = (torch.roll(t[:, s - slots:], shift, dims=1) for t in (k, v))
+        k, v = (_roll_seq(t[:, s - slots:], shift) for t in (k, v))
         pos = torch.roll(pos[s - slots:], shift, dims=0)
     else:
         k, v = _pad_slots(k, slots, 0), _pad_slots(v, slots, 0)

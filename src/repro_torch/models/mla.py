@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.attention import NEG_INF, _flash
+from repro_torch.models.attention import NEG_INF, _flash, _local, on_head_shards
 
 ROPE_THETA = 10_000.0
 
@@ -80,12 +80,13 @@ def mla_attention(p, x, positions, cfg, block):
 
     q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]                   # (B,S,H,1,dqk)
     k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)], dim=-1)   # (B,S,H,dqk)
-    out = _flash(
-        q, k, v, positions, positions,
+    pos = _local(positions)
+    out = on_head_shards(lambda q_, k_, v_, qpos_: _flash(
+        q_, k_, v_, qpos_, pos,
         causal=True, window=0, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
         remat_kv=cfg.flash_remat,
-    )                                                                   # (B,S,H,1,dv)
-    return L.dense(p["wo"], L.merge_last(out, 3))
+    ), q, k, v, pos)                                                    # (B,S,H*dv)
+    return L.dense(p["wo"], out)
 
 
 def mla_attention_absorbed(p, x, positions, cfg, block):

@@ -93,12 +93,54 @@ def route(xg, router_w, m, cap):
     return st, sg, slot, keep, inv
 
 
+def _experts_on_shards(h, p, dtype):
+    """``_experts`` on DTensors, run on each rank's shards: a mesh dim that
+    shards the experts (expert parallelism) gives each rank its experts'
+    buffers and weights; one that shards the token groups, or a data-parallel
+    one ("pod", "data") that the groups divide, gives each rank its groups
+    and the weights whole (an FSDP shard gathered, its gradient then a
+    partial sum); anything else is replicated.  DTensor's own einsum
+    over such shards views a non-contiguous local shard and fails."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    w = {k: p[k] for k in ("wg", "wi", "wo")}
+    mesh = next(t.device_mesh for t in (h, *w.values()) if isinstance(t, DTensor))
+    if not isinstance(h, DTensor):
+        h = DTensor.from_local(h, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    e, g = p["wg"].shape[0], h.shape[0]
+    names = mesh.mesh_dim_names or ()
+    h_pl, w_pl, wg_pl = [], [], []
+    e_split = g_split = 1
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        if n > 1 and any(getattr(t, "placements", (None,) * mesh.ndim)[i] == Shard(0) for t in w.values()) \
+                and e % (e_split * n) == 0:
+            e_split *= n
+            h_pl.append(Shard(1)), w_pl.append(Shard(0)), wg_pl.append(Shard(0))
+        elif n > 1 and (h.placements[i].is_shard(0) or names[i] in ("pod", "data")) \
+                and g % (g_split * n) == 0:
+            g_split *= n
+            h_pl.append(Shard(0)), w_pl.append(Replicate()), wg_pl.append(Partial())
+        else:
+            h_pl.append(Replicate()), w_pl.append(Replicate()), wg_pl.append(Replicate())
+
+    def local_w(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, w_pl).to_local(grad_placements=wg_pl)
+
+    y = _experts(h.redistribute(mesh, h_pl).to_local(), {k: local_w(t) for k, t in w.items()}, dtype)
+    return DTensor.from_local(y, mesh, h_pl, run_check=False)
+
+
 def _experts(h, p, dtype):
     """The swiglu of each expert on its buffer h (G, E, cap, D), over slices
     of experts."""
+    if any(hasattr(t, "placements") for t in (h, p["wg"], p["wi"], p["wo"])):
+        return _experts_on_shards(h, p, dtype)
     e, d, f = p["wg"].shape
     step = max(1, EXPERT_SLICE // (d * f))
-    y = h.new_empty(h.shape, dtype=dtype)   # a DTensor like h when h is one
+    y = h.new_empty(h.shape, dtype=dtype)
     for lo in range(0, e, step):
         es = slice(lo, lo + step)
         hs = h[:, es].float()
@@ -111,14 +153,58 @@ def _experts(h, p, dtype):
 
 def _route_groups(xg, p, m, cap):
     """Route token groups xg (G, n, D) -> (G, n, D).  Sort-based, capacity-dropped."""
+    if hasattr(xg, "placements"):
+        return _route_groups_on_shards(xg, p, m, cap)
+    return _route_local(xg, p["router"]["w"], lambda h: _experts(h, p, xg.dtype), m, cap)
+
+
+def _route_groups_on_shards(xg, p, m, cap):
+    """``_route_groups`` on a DTensor xg: each rank routes its own token
+    groups (those of its data shards; replicated over the other mesh dims)
+    as plain tensors, so the sort, the scatter into the expert buffers and
+    the combine stay local, as the reference's grouping intends (and
+    ``index_put_`` has no DTensor strategy in every torch the port runs
+    on).  Only the experts run as DTensors (``_experts_on_shards``), their
+    outputs gathered back whole for the combine.  The router's gradient is
+    a partial sum over the group shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = xg.device_mesh
+    names = mesh.mesh_dim_names or ()
+    rows, split = [], 1
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        dp = xg.placements[i].is_shard(0) or names[i] in ("pod", "data")
+        if n > 1 and dp and xg.shape[0] % (split * n) == 0:
+            split *= n
+            rows.append(Shard(0))
+        else:
+            rows.append(Replicate())
+    router = p["router"]["w"]
+    if not isinstance(router, DTensor):
+        router = DTensor.from_local(router, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    router = router.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if pl.is_shard(0) else pl for pl in rows])
+
+    def experts(h):
+        y = _experts(DTensor.from_local(h, mesh, rows, run_check=False), p, xg.dtype)
+        return y.redistribute(mesh, rows).to_local()
+
+    out = _route_local(xg.redistribute(mesh, rows).to_local(), router, experts, m, cap)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def _route_local(xg, router_w, experts, m, cap):
+    """The routing of token groups xg (G, n, D) by ``router_w``, with
+    ``experts(buffers (G, E, cap, D))`` the expert products."""
     g, n, d = xg.shape
     e, k = m.num_experts, m.top_k
-    st, sg, slot, keep, inv = route(xg, p["router"]["w"], m, cap)
+    st, sg, slot, keep, inv = route(xg, router_w, m, cap)
     gi = torch.arange(g, device=xg.device)[:, None]
 
     buf = xg.new_zeros((g, e * cap + 1, d))
     buf[gi, slot] = xg[gi, st]                           # the pad row takes every dropped write
-    y = _experts(buf[:, : e * cap].reshape(g, e, cap, d), p, xg.dtype)
+    y = experts(buf[:, : e * cap].reshape(g, e, cap, d))
 
     yf = torch.cat([y.reshape(g, e * cap, d), y.new_zeros((g, 1, d))], dim=1)
     contrib = yf[gi, slot] * (sg * keep.float()).to(xg.dtype)[..., None]
@@ -139,7 +225,9 @@ def moe_apply(p, x, cfg):
     n = b * s
     groups = num_groups(n, m)
     ng = n // groups
-    out = _route_groups(x.reshape(groups, ng, d), p, m, capacity(ng, m)).reshape(b, s, d)
+    # the gradient comes back placed as the output is: DTensor cannot view a
+    # gradient that arrives sharded otherwise back into the token groups
+    out = L.grad_placed(_route_groups(x.reshape(groups, ng, d), p, m, capacity(ng, m)).reshape(b, s, d))
     if "shared" in p:
         out = out + L.swiglu(p["shared"], x)
     if "dense" in p:

@@ -179,10 +179,12 @@ def _mlstm_qkv(p, x, num_heads):
     b, s, _ = x.shape
     dh = p["wq"]["w"].shape[1] // num_heads
 
-    def heads(name):
-        return L.split_last(L.dense(p[name], x, torch.float32), num_heads, dh).transpose(1, 2)
+    def heads(name, inner=False):
+        return L.split_last(L.dense(p[name], x, torch.float32), num_heads, dh, inner=inner).transpose(1, 2)
 
-    q, k, v = heads("wq"), heads("wk"), heads("wv")
+    # where the mesh does not divide the heads, v keeps its shards on the
+    # value dim, and with it the state C and the products over it
+    q, k, v = heads("wq"), heads("wk"), heads("wv", inner=True)
     li = L.dense(p["wi"], x, torch.float32).transpose(1, 2)            # (B,H,S) log input gate
     lf = F.logsigmoid(L.dense(p["wf"], x, torch.float32)).transpose(1, 2)
     return q, k / float(np.sqrt(dh)), v, li, lf

@@ -2,13 +2,19 @@
 ``repro.roofline.report`` (it reads either package's JSONs).
 
     PYTHONPATH=src python -m repro_torch.roofline.report experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.roofline.report experiments/dryrun_torch --against experiments/dryrun
+
+With ``--against`` it prints, per cell, the per-chip FLOPs beside the
+other directory's same cell (the reference's dry-run) and their ratio,
+both useful-FLOPs fractions, the dominant term, temp bytes and lowering
+seconds; a cell that failed (``<cell>.json.fail``) or is missing shows so.
 """
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
-import sys
 
 
 def load(dirpath: str):
@@ -58,11 +64,44 @@ def markdown(rows, mesh_filter=None):
     return "\n".join(out)
 
 
-def main():
-    dirpath = sys.argv[1] if len(sys.argv) > 1 else "experiments/dryrun_torch"
-    rows = load(dirpath)
-    print(f"### {dirpath} ({len(rows)} cells)\n")
-    print(markdown(rows))
+def against(rows, ref_dir, lo=0.5, hi=2.0):
+    """(markdown lines, the tags outside [lo, hi] x the reference's FLOPs)."""
+    ref = {d["_tag"]: d for d in load(ref_dir)}
+    port = {d["_tag"]: d for d in rows}
+    tags = sorted(set(port) | set(ref))
+    out = ["| cell | flops/chip | reference | ratio | useful | reference useful | dominant | temp GB/chip | lower s |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    outside = []
+    for tag in tags:
+        d, r = port.get(tag), ref.get(tag)
+        if d is None or "skipped" in d or r is None or "skipped" in r:
+            what = "skipped" if (d or r or {}).get("skipped") else ("missing" if d is None else "no reference")
+            out.append(f"| {tag} | {what} | | | | | | | |")
+            continue
+        ratio = d["flops_per_chip"] / r["flops_per_chip"] if r["flops_per_chip"] else float("nan")
+        if not lo <= ratio <= hi:
+            outside.append(tag)
+        out.append(
+            f"| {tag} | {d['flops_per_chip']:.4g} | {r['flops_per_chip']:.4g} | {ratio:.3f} | "
+            f"{d['useful_flops_fraction']:.3f} | {r['useful_flops_fraction']:.3f} | {d['dominant']} | "
+            f"{d.get('temp_bytes_per_chip', 0) / 1e9:.2f} | {d.get('lower_s', 0):.1f} |")
+    return out, outside
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dir", nargs="?", default="experiments/dryrun_torch")
+    ap.add_argument("--against", default=None, help="another dry-run directory (the reference's)")
+    args = ap.parse_args(argv)
+    rows = load(args.dir)
+    print(f"### {args.dir} ({len(rows)} cells)\n")
+    if args.against is None:
+        print(markdown(rows))
+        return
+    lines, outside = against(rows, args.against)
+    print("\n".join(lines))
+    fails = sorted(os.path.basename(f)[:-10] for f in glob.glob(os.path.join(args.dir, "*.json.fail")))
+    print(f"\nfailed: {fails or 'none'}; outside 0.5-2x the reference's FLOPs per chip: {outside or 'none'}")
 
 
 if __name__ == "__main__":

@@ -7,4 +7,6 @@ from repro_torch.sharding.rules import (  # noqa: F401
     to_placements,
     PartitionSpec,
     ShapeMesh,
+    NamedSharding,
+    named_shardings,
 )

@@ -29,7 +29,7 @@ jax key paths give them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -252,6 +252,26 @@ def to_placements(spec, mesh):
                  for i, n in enumerate(names))
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``DeviceMesh`` and a spec on it, ``jax.sharding.NamedSharding``'s
+    counterpart: the leaf of the tree that ``restore_checkpoint(...,
+    shardings=)`` places a checkpoint by."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self):
+        return to_placements(self.spec, self.mesh)
+
+
+def named_shardings(specs, mesh):
+    """A tree of specs (``param_specs``, ``cache_specs``, ...) as a tree of
+    ``NamedSharding``s on ``mesh``."""
+    return map_with_path(lambda _, spec: NamedSharding(mesh, spec), specs)
+
+
 _REGISTERED = []
 
 
@@ -260,7 +280,9 @@ def register_strategies():
     DTensor lacks (once per process): ``aten.searchsorted`` (the MoE's
     ``route``) shards over any leading dim that both its inputs shard
     alike, else runs replicated; ``aten.log_sigmoid_forward`` and
-    ``_backward`` (the mLSTM's and sLSTM's forget gates) are pointwise."""
+    ``_backward`` (the mLSTM's and sLSTM's forget gates) are pointwise;
+    ``aten.flip`` (in the backward of the mLSTM's cumsum; torch 2.11 has no
+    strategy for it) keeps any shard of a dim it does not flip."""
     if _REGISTERED:
         return
     from torch.distributed.tensor import Replicate, Shard
@@ -276,6 +298,12 @@ def register_strategies():
     def _log_sigmoid_forward(x):
         return [([Replicate()] * 2, [Replicate()])] + [
             ([Shard(d)] * 2, [Shard(d)]) for d in range(x.ndim)]
+
+    @register_sharding(torch.ops.aten.flip.default)
+    def _flip(x, dims):
+        flipped = {d % x.ndim for d in dims}
+        return [([Replicate()], [Replicate(), None])] + [
+            ([Shard(d)], [Shard(d), None]) for d in range(x.ndim) if d not in flipped]
 
     @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
     def _log_sigmoid_backward(grad_output, x, buffer):

@@ -12,6 +12,17 @@ them, so the manifest is the reference's byte for byte.  Writes go to a temp dir
 that is atomically renamed, so an interrupted save never corrupts the
 latest checkpoint; restore picks the newest complete manifest.
 
+Sharded state (a DTensor leaf, the elastic re-mesh of the reference): each
+leaf is saved as its global array, the same file a plain tensor writes.
+Every rank calls ``save_checkpoint`` (each leaf is gathered whole with
+``full_tensor()``, one leaf at a time, a collective); rank 0 of the default
+process group writes the files and renames the temp directory, and a
+barrier then holds every rank until the checkpoint is complete.
+``restore_checkpoint(..., shardings=)`` places each global array by a
+matching tree of ``NamedSharding``s (mesh and spec): every rank reads the
+whole array and keeps its own shards, so a checkpoint saved on one mesh
+restores onto any other, or, without ``shardings``, as plain tensors.
+
 bf16 leaves: the reference's ``np.save`` of an ``ml_dtypes`` bfloat16 array
 writes 2-byte void elements (descr ``<V2``) and the manifest says
 ``"bfloat16"``.  The port writes the same bytes (that header, then the
@@ -73,24 +84,44 @@ def _save_leaf(path: str, t: torch.Tensor):
     return list(arr.shape), str(arr.dtype)
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor")
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None):
+    """Write ``tree`` as ``<ckpt_dir>/step_<step>``.  With DTensor leaves,
+    every rank calls it and rank 0 writes (see the module's docstring)."""
+    import torch.distributed as dist
+
+    leaves = _flatten(tree)
+    sharded = any(_is_dtensor(t) for _, t in leaves)
+    group = sharded and dist.is_initialized()
+    writer = not group or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
 
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for path, leaf in _flatten(tree):
+    for path, leaf in leaves:
         name = "/".join(path)
         fn = _fname(name)
-        shape, dtype = _save_leaf(os.path.join(tmp, fn), leaf)
-        manifest["leaves"][name] = {"file": fn, "shape": shape, "dtype": dtype}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic commit
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if writer:
+            shape, dtype = _save_leaf(os.path.join(tmp, fn), leaf)
+            manifest["leaves"][name] = {"file": fn, "shape": shape, "dtype": dtype}
+        del leaf
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+    if group:
+        dist.barrier()
     return final
 
 
@@ -105,12 +136,32 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _sharding_at(shardings, path):
+    """The ``NamedSharding`` (or None) of the leaf at ``path`` of a tree
+    that matches ``like``; a ``NamedSharding`` or None higher up covers
+    its whole subtree."""
+    from repro_torch.sharding.rules import NamedSharding
+
+    s = shardings
+    for k in path:
+        if s is None or isinstance(s, NamedSharding):
+            break
+        s = s[k] if isinstance(s, dict) else s[int(k)]
+    return s
+
+
 def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
-                       device="cuda") -> Tuple[Any, int, dict]:
+                       device="cuda", shardings: Any = None) -> Tuple[Any, int, dict]:
     """Restore into the structure of ``like`` (a tree of tensors, on any
     device, ``meta`` included: only its structure and shapes are read).
 
-    Returns (tree of new tensors on ``device``, step, the manifest's extra).
+    ``shardings``: optional matching tree of ``NamedSharding``s (e.g.
+    ``named_shardings(param_specs(...), mesh)``): each leaf that has one
+    comes back as a DTensor on its mesh, each rank keeping its own shards
+    of the global array (no collective); the elastic re-mesh.
+
+    Returns (tree of new tensors on ``device``, or DTensors, step, the
+    manifest's extra).
     """
     dev = resolve_device(device)
     if step is None:
@@ -134,6 +185,12 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        leaves.append(t.to(dev))
+        sh = _sharding_at(shardings, path)
+        if sh is None:
+            leaves.append(t.to(dev))
+        else:
+            from torch.distributed.tensor import distribute_tensor
+            t = t.to(sh.mesh.device_type)
+            leaves.append(distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None))
     tree = _rebuild(like, iter(leaves))
     return tree, step, manifest.get("extra", {})

@@ -11,7 +11,9 @@ Here ``adamw_update`` writes the params, m, v and step in place under
 ``torch.no_grad()``, one leaf at a time with two leaf-sized fp32
 temporaries, and returns the same trees: at full width a second copy of
 params and state would not fit (recurrentgemma-2b's fp32 params, grads, m
-and v are 46.3 GB).  ``step`` and ``lr`` stay 0-d tensors on the params'
+and v are 46.3 GB).  DTensor leaves (a sharded step) are updated shard by
+shard on each rank's local tensors, the gradient first placed as its
+param is; ``global_norm`` sums the shards' squares across the mesh.  ``step`` and ``lr`` stay 0-d tensors on the params'
 device, so a step makes no host sync.
 """
 from __future__ import annotations
@@ -62,9 +64,14 @@ def adamw_init(params, state_dtype: str = "float32"):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares (a
+    DTensor leaf's summed over its shards, whole on every rank)."""
+    leaves = [_whole(torch.sum(torch.square(x.to(torch.float32)))) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def _update_leaf(p, g, m, v, scale, lr, b1c, b2c, hp: OptHParams):
@@ -74,10 +81,15 @@ def _update_leaf(p, g, m, v, scale, lr, b1c, b2c, hp: OptHParams):
     fp32 copy too)."""
     f32 = torch.float32
     placements = getattr(p, "placements", None)
-    if placements is not None and g.placements != placements:
-        # a DTensor gradient placed otherwise (partial sums, another shard):
-        # the in-place update needs it where p is (the gradient reduction)
-        g = g.redistribute(p.device_mesh, placements)
+    if placements is not None:
+        if g.placements != placements:
+            # a DTensor gradient placed otherwise (partial sums, another
+            # shard): the update needs it where p is (the gradient reduction)
+            g = g.redistribute(p.device_mesh, placements)
+        # the update is elementwise: each rank writes its own shards of p, m
+        # and v in place, and the 0-d factors are whole on every rank
+        p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        scale, lr, b1c, b2c = (_whole(t) for t in (scale, lr, b1c, b2c))
     t1 = g.to(f32) * scale                                 # g32
     t2 = torch.mul(t1, 1 - hp.b1)
     m32 = m.to(f32).mul_(hp.b1).add_(t2)                   # b1 m + (1 - b1) g32

@@ -11,12 +11,23 @@ placeholder host devices before jax starts), all four at once:
   against ``repro.launch.selfjoin_dryrun``: the reference's
   ``model_flops`` in all six cells and a nonzero collective-permute;
 * the report CLI on the port's JSON, and the dry-run's default device
-  (``cuda``) refused without a card.
+  (``cuda``) refused without a card;
+* on the 256-rank production mesh (a fake group, one subprocess per arch),
+  one arch of each fault class that the port's DTensor seams had (strided
+  head shards on both sides: phi3; a KV head count the model axis does not
+  divide and the vocab-sharded CE: qwen3; MLA and FSDP experts:
+  deepseek-v2; the experts: arctic; the recurrent projections:
+  recurrentgemma) at full width, cut to one repeat of each layer group
+  (``dryrun.cut_depth``),
+  runs its train, prefill and decode cells with the sequence cut to two
+  key chunks.  qwen3's train cell does no more than twice its share of the
+  model's FLOPs per chip (it did 7x, the CE's logits unsharded).
 """
 import json
 import os
 import subprocess
 import sys
+import textwrap
 
 import pytest
 import torch
@@ -111,3 +122,66 @@ def test_report_renders_port_json(runs):
 def test_dryrun_default_device_needs_a_card(runs):
     code, text = runs["no_card"]
     assert code != 0 and "no CUDA device is available" in text
+
+
+# -- every fault class's cells on the production mesh, cut in depth --------
+
+CUT_ARCHS = ["phi3_mini_3p8b", "qwen3_32b", "deepseek_v2_236b", "arctic_480b", "recurrentgemma_2b"]
+CUT_SHAPES = ["train_4k", "prefill_32k", "decode_32k"]
+CUT_WORKER = textwrap.dedent(
+    """
+    import json, sys
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    arch, out = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(1)
+    dryrun.fake_world(256)
+    cfg = dryrun.cut_depth(get_config(arch))
+    res = {}
+    for shape in sys.argv[3:]:
+        d, _ = dryrun.lower_cell(arch, shape, False, device="cpu", cfg=cfg, seq=2 * cfg.k_chunk)
+        res[shape] = d
+    with open(out, "w") as f:
+        json.dump(res, f)
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def cut_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_cut")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = {a: subprocess.Popen([sys.executable, "-c", CUT_WORKER, a, str(tmp / f"{a}.json"), *CUT_SHAPES],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+             for a in CUT_ARCHS}
+    out = {}
+    try:
+        for a, p in procs.items():
+            out[a] = (p.wait(timeout=DEADLINE_S), p.stdout.read().decode())
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for a, (code, text) in out.items():
+        assert code == 0, f"{a}: {text[-3000:]}"
+    return {a: json.loads((tmp / f"{a}.json").read_text()) for a in CUT_ARCHS}
+
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+@pytest.mark.parametrize("arch", CUT_ARCHS)
+def test_cut_cell_runs_on_production_mesh(cut_runs, arch, shape):
+    d = cut_runs[arch][shape]
+    assert d["chips"] == 256 and d["mesh"] == "data=16xmodel=16"
+    assert d["kind"] == shape.split("_")[0]
+    assert d["flops_per_chip"] > 0 and d["model_flops"] > 0
+    assert d["dominant"] in ("compute", "memory", "collective")
+    assert d["temp_bytes_per_chip"] > 0
+
+
+def test_qwen3_train_ce_sharded(cut_runs):
+    d = cut_runs["qwen3_32b"]["train_4k"]
+    assert d["useful_flops_fraction"] >= 0.5, d["useful_flops_fraction"]
