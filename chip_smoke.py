@@ -220,12 +220,15 @@ Phases, each printing one JSON line:
    gemma3-12b x decode_32k on both production meshes, deepseek-v2 and
    arctic x decode_32k on 16 x 16, and cut to one block of each kind and
    2048 tokens phi3-mini x prefill_32k, xlstm-125m x prefill_32k and
-   qwen3-32b x train_4k: one cell per fault class the DTensor seams had;
+   qwen3-32b x train_4k, and recurrentgemma-2b x long_500k on both
+   production meshes: one cell per fault class the DTensor seams had;
    the ring at its default 2^24 x 32 points, one process per mesh and
    variant), started together at the phase's start; phase 13 waits for
    them first and prints one line per cell with its useful FLOPs
-   fraction, and fails on a model cell below 0.5 that ``LOW_USEFUL`` does
-   not name, so that (c) times on quiet cores; (c) gemma3-12b's decode step (batch 4, context 1536) and
+   fraction and its FLOPs per chip over the reference's
+   (``REF_FLOPS_PER_CHIP``), and fails on a model cell below 0.5 useful
+   that ``LOW_USEFUL`` does not name or outside 0.5-2x of the reference,
+   so that (c) times on quiet cores; (c) gemma3-12b's decode step (batch 4, context 1536) and
    recurrentgemma-2b's train step (2 x 2048) on real tensors: CUDA-event ms
    beside ``count_ops()``'s compute (fp32 products at the fp32 peak) and
    memory terms on ``H100``; (a) recurrentgemma-2b uncut served (4 prompts
@@ -4048,19 +4051,40 @@ SHARD_TOL = 2.0 ** -8                     # the last logits: one bf16 rounding, 
 CUT = ("--cut-depth", "--seq", "2048")    # one block of each kind, two key chunks: the full cells lower for minutes
 DRYRUN_CELLS = (("xlstm_125m", "long_500k", ("--multi-pod",)), ("gemma3_12b", "decode_32k", ("--both-meshes",)),
                 # one cell per fault class the DTensor seams had: the experts (deepseek-v2, arctic),
-                # strided head shards on both sides (phi3), the recurrent projections (xlstm),
-                # and a train cell (qwen3: a KV head count the model axis does not divide, the CE)
+                # strided head shards on both sides (phi3), the recurrent projections and the sLSTM's
+                # time loop (xlstm), a train cell (qwen3: a KV head count the model axis does not
+                # divide, the CE), and products at batch 1 split over the data axes (recurrentgemma)
                 ("deepseek_v2_236b", "decode_32k", ()), ("arctic_480b", "decode_32k", ()),
                 ("phi3_mini_3p8b", "prefill_32k", CUT), ("xlstm_125m", "prefill_32k", CUT),
-                ("qwen3_32b", "train_4k", CUT))
-DRYRUN_MODEL_CELLS = 8                    # gemma3's cell on both meshes
+                ("qwen3_32b", "train_4k", CUT), ("recurrentgemma_2b", "long_500k", ("--both-meshes",)))
+DRYRUN_MODEL_CELLS = 10                   # gemma3's and recurrentgemma's cells on both meshes
 DRYRUN_DEADLINE_S = 300.0                 # for the dry-runs together, from their start
-# cells whose useful FLOPs fraction is below 0.5 on this tree, each with its reason (PERF.md §5 names them)
+# the reference's FLOPs per chip in each model cell, at the same cut: `python -m repro.launch.dryrun
+# --arch A --shape S [--multi-pod]` on the CPU (jax 0.9.0), and for the cut cells its `lower_cell` with
+# every layer group repeated once and the shape's sequence set to 2048 (PERF.md §6); each card cell must
+# do 0.5-2x of it
+REF_FLOPS_PER_CHIP = {
+    "xlstm_125m__long_500k__pod2": 5811552.0,
+    "gemma3_12b__decode_32k__pod1": 14248050688.0,
+    "gemma3_12b__decode_32k__pod2": 7124025344.0,
+    "deepseek_v2_236b__decode_32k__pod1": 731738112000.0,
+    "arctic_480b__decode_32k__pod1": 969870540800.0,
+    "phi3_mini_3p8b__prefill_32k-cut-s2048__pod1": 64449134592.0,
+    "xlstm_125m__prefill_32k-cut-s2048__pod1": 13332602880.0,
+    "qwen3_32b__train_4k-cut-s2048__pod1": 21126944129024.0,
+    "recurrentgemma_2b__long_500k__pod1": 146618880.0,
+    "recurrentgemma_2b__long_500k__pod2": 140536320.0,
+}
+# cells whose useful FLOPs fraction is below 0.5 on this tree, each with its reason (PERF.md §6 names them)
 LOW_USEFUL = {
     "deepseek_v2_236b__decode_32k__pod1": "MoE decode: 128 tokens in 32 routing groups fill every expert's "
                                           "minimum capacity of 8 with padding (the reference's 0.139)",
     "arctic_480b__decode_32k__pod1": "MoE decode: the same capacity padding, 128 experts (the reference's 0.033)",
-    "xlstm_125m__long_500k__pod2": "batch 1 on 512 chips: every data shard but one idles (the reference's 0.069)",
+    "xlstm_125m__long_500k__pod2": "batch 1: the tied readout's 768-wide contraction is whole on every data rank, "
+                                   "as in the reference, and is 83% of the reference's FLOPs (the reference's 0.069)",
+    "recurrentgemma_2b__long_500k__pod1": "batch 1: the tied readout's contraction is whole on every data rank, "
+                                          "as in the reference (the reference's 0.159)",
+    "recurrentgemma_2b__long_500k__pod2": "batch 1: the same readout on 512 chips (the reference's 0.083)",
 }
 ROOF_DECODE_ITERS, ROOF_TRAIN_ITERS = 5, 2   # (c): timed calls after one warm-up
 
@@ -4324,6 +4348,8 @@ def dryruns(tmp):
     check(models == DRYRUN_MODEL_CELLS and len(ring) == 6,
           f"the dry-runs wrote {models} model cells and {len(ring)} ring cells, "
           f"not {DRYRUN_MODEL_CELLS} and 6")
+    for cell in cells[:models]:
+        cell["flops_over_reference"] = cell["flops_per_chip"] / REF_FLOPS_PER_CHIP[cell["cell"]]
     for cell in cells:
         check(all(math.isfinite(cell[k]) and cell[k] >= 0 for k in ("compute_s", "memory_s", "collective_s")),
               f"{cell['cell']}: a roofline term is not a finite time")
@@ -4332,6 +4358,8 @@ def dryruns(tmp):
         check(cell["useful_flops_fraction"] >= 0.5 or cell["cell"] in LOW_USEFUL,
               f"{cell['cell']}: useful FLOPs fraction {cell['useful_flops_fraction']:.3f} < 0.5, "
               "and LOW_USEFUL gives no reason")
+        check(0.5 <= cell["flops_over_reference"] <= 2.0,
+              f"{cell['cell']}: {cell['flops_over_reference']:.3f}x the reference's FLOPs per chip, outside 0.5-2x")
     return {"cells": len(cells), "wall_s": time.perf_counter() - t_start,
             "lower_s": {c["cell"]: c["lower_s"] for c in cells[:models]}}
 

@@ -93,7 +93,8 @@ def dense_init(init: Init, d_in: int, d_out: int, dtype, bias: bool = False,
 def dense(p, x, out_dtype=None):
     out_dtype = out_dtype or x.dtype
     x = matmul_layout(x, p["w"])
-    y = torch.matmul(x.float(), p["w"].float())
+    x, w, dims = split_idle_dp(x, p["w"])
+    y = whole_on(torch.matmul(x.float(), w.float()), dims)
     if "b" in p:
         y = y + p["b"].float()
     return grad_placed(y.to(out_dtype))
@@ -158,6 +159,54 @@ def matmul_layout(x, w):
     if tuple(want) == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def split_idle_dp(x, w):
+    """``x @ w``'s operands with the product also split over the
+    data-parallel mesh dims that the batch cannot be split over (a batch of
+    1 on "data"), as GSPMD splits it; and those dims, on which the caller
+    makes the product whole again (``whole_on``).  On each such dim where
+    ``x`` and ``w`` are both replicated, each rank takes a slice of ``w``
+    (a local slice, no collective): of its output features where another
+    dim already splits the contraction (a row-parallel product: the
+    result comes out sharded there, and is gathered), else of its input
+    features, ``x`` sliced alike (the result is a partial sum, all-reduced).
+    Anything else, or a width those dims do not divide, is returned as it
+    is, with no dims."""
+    if getattr(x, "placements", None) is None or getattr(w, "placements", None) is None:
+        return x, w, ()
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.sharding.rules import dp_axes
+
+    mesh = x.device_mesh
+    dp = [mesh.mesh_dim_names.index(a) for a in dp_axes(mesh)]
+    idle = tuple(i for i in dp if x.placements[i].is_replicate() and w.placements[i].is_replicate()
+                 and x.shape[0] % mesh.size(i))
+    n = int(np.prod([mesh.size(i) for i in idle]))
+    last, rows, cols = x.ndim - 1, w.ndim - 2, w.ndim - 1
+    if any(pl.is_shard(rows) for pl in w.placements):       # row-parallel: split the output features
+        dim = cols
+        ok = w.shape[cols] % n == 0 and not any(pl.is_shard(cols) for pl in w.placements)
+    else:                                                   # split the contraction
+        dim = rows
+        ok = w.shape[rows] % n == 0 and not any(pl.is_shard(last) for pl in x.placements)
+        if idle and ok:
+            x = x.redistribute(mesh, [Shard(last) if i in idle else pl for i, pl in enumerate(x.placements)])
+    if not idle or not ok:
+        return x, w, ()
+    w = w.redistribute(mesh, [Shard(dim) if i in idle else pl for i, pl in enumerate(w.placements)])
+    return x, w, idle
+
+
+def whole_on(y, dims):
+    """The DTensor ``y`` replicated on the mesh dims ``dims`` (a gather or
+    an all-reduce, which ``repro_torch.roofline.opcount`` charges); ``y``
+    as it is for no dims."""
+    if not dims:
+        return y
+    from torch.distributed.tensor import Replicate
+    return y.redistribute(y.device_mesh, [Replicate() if i in dims else pl for i, pl in enumerate(y.placements)])
 
 
 def batch_like(t, ref):
@@ -336,8 +385,15 @@ class _FromLocal(torch.autograd.Function):
 
 
 def unembed(p_embed, x):
-    """Tied readout: x @ table^T, fp32 logits."""
-    return torch.matmul(x.float(), p_embed["table"].float().T)
+    """Tied readout: x @ table^T, fp32 logits.  Under DTensor a
+    column-parallel product placed here, not by DTensor (whose choice
+    differs between torch versions): ``x`` whole but for its batch shards,
+    the logits sharded over the vocab as the table is.  The contraction is
+    not split over the data axes at batch 1, as GSPMD leaves it."""
+    w = p_embed["table"].float().T
+    if getattr(x, "placements", None) is not None:
+        x = _replicated(x, lambda pl: not pl.is_shard(0))
+    return grad_placed(torch.matmul(matmul_layout(x, w).float(), w))
 
 
 # ---------------------------------------------------------------- RoPE -----

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models import layers as L
 
@@ -291,37 +292,181 @@ def slstm_init(init: L.Init, d_model: int, num_heads: int, dtype):
     }
 
 
+def _slstm_update(zt, it, ft, ot, c, n, m):
+    """One sLSTM time step from the z, i, f, o pre-activations (any layout
+    the state shares): (c, n, m, h) after it."""
+    z = torch.tanh(zt)
+    lf = F.logsigmoid(ft)                                # log forget gate; it is the log input gate
+    o = torch.sigmoid(ot)
+    lfm = lf + m
+    m_new = torch.maximum(lfm, it)
+    i_ = torch.exp(it - m_new)
+    f_ = torch.exp(lfm - m_new)
+    c = f_ * c + i_ * z
+    n = f_ * n + i_
+    return c, n, m_new, o * (c / torch.clamp_min(n, 1e-6))
+
+
 def slstm_seq(p, x, num_heads: int, state=None):
-    """Sequential sLSTM, a loop over time. x: (B,S,D)."""
+    """Sequential sLSTM, a loop over time. x: (B,S,D).  DTensor inputs run
+    the loop on local shards (``_slstm_local``)."""
     b, s, d = x.shape
     dh = d // num_heads
     pre = L.dense(p["wzifo"], x, torch.float32)          # (B,S,4D)
-    pre = L.split_last(pre, 4, num_heads, dh).permute(1, 0, 2, 3, 4)  # (S,B,4,H,dh)
-    r = p["r"].float()
-
-    if state is None:
-        state = slstm_init_state(b, num_heads, dh, device=x.device)
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]   # (B,H,dh) each
-    ys = []
-    for xt in pre:
-        rec = torch.einsum("bhd,ghde->gbhe", h, r)       # (4,B,H,dh)
-        gates = xt + rec.transpose(0, 1)                 # (B,4,H,dh): z, i, f, o pre-activations
-        z = torch.tanh(gates[:, 0])
-        li = gates[:, 1]                                 # log input gate
-        lf = F.logsigmoid(gates[:, 2])                   # log forget gate
-        o = torch.sigmoid(gates[:, 3])
-        lfm = lf + m
-        m_new = torch.maximum(lfm, li)
-        i_ = torch.exp(li - m_new)
-        f_ = torch.exp(lfm - m_new)
-        c = f_ * c + i_ * z
-        n = f_ * n + i_
-        h = o * (c / torch.clamp_min(n, 1e-6))
-        m = m_new
-        ys.append(h)
-    y = L.merge_last(torch.stack(ys, dim=1), 2).to(x.dtype)
+    if getattr(pre, "placements", None) is not None:
+        y, state = _slstm_local(pre, p["r"], state, num_heads, dh)
+    else:
+        pre = pre.reshape(b, s, 4, num_heads, dh).permute(1, 0, 2, 3, 4)   # (S,B,4,H,dh)
+        r = p["r"].float()
+        if state is None:
+            state = slstm_init_state(b, num_heads, dh, device=x.device)
+        c, n, m, h = state["c"], state["n"], state["m"], state["h"]   # (B,H,dh) each
+        ys = []
+        for xt in pre:
+            rec = torch.einsum("bhd,ghde->gbhe", h, r)       # (4,B,H,dh)
+            gates = xt + rec.transpose(0, 1)                 # (B,4,H,dh): z, i, f, o pre-activations
+            c, n, m, h = _slstm_update(gates[:, 0], gates[:, 1], gates[:, 2], gates[:, 3], c, n, m)
+            ys.append(h)
+        y = torch.stack(ys, dim=1)
+        state = {"c": c, "n": n, "m": m, "h": h}
+    y = L.merge_last(y, 2).to(x.dtype)
     y = L.rmsnorm(p["norm"], y)
-    return L.dense(p["wout"], y), {"c": c, "n": n, "m": m, "h": h}
+    return L.dense(p["wout"], y), state
+
+
+def _slstm_local(pre, r, state, num_heads, dh):
+    """The sLSTM's time loop on each rank's local tensors, for the DTensor
+    pre-activations ``pre`` (B, S, 4D): DTensor would otherwise propagate
+    the sharding of every op of every step.  The batch keeps its shards.
+    Where one mesh dim shards the (gate, head) pairs of ``pre``'s last dim
+    evenly (the "model" dim: 16 pairs of 4 gates x 4 heads, one per rank),
+    each rank takes its pairs' recurrent products (its slice of ``r``,
+    which the rules hold whole) and the pre-activations of all pairs are
+    gathered once per step, a collective that ``opcount`` charges; the
+    state update then runs whole on every rank.  Elsewhere ``pre`` is
+    gathered once and every rank runs the whole loop.  On fake tensors one
+    step stands for all (``_FakeSteps``; the counter's peak then holds one
+    step's h where the loop keeps S).
+    Returns (y (B, S, H, dh), state), DTensors with the batch's shards,
+    whole on every other mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = pre.device_mesh
+    b, s, _ = pre.shape
+    pairs = 4 * num_heads
+    split = [i for i, pl in enumerate(pre.placements) if pl.is_shard(2)]
+    gi = split[0] if len(split) == 1 and pairs % mesh.size(split[0]) == 0 else None
+    rows = [Shard(0) if pl.is_shard(0) else Replicate() for pl in pre.placements]
+    want = [Shard(2) if i == gi else pl for i, pl in enumerate(rows)]
+    pre_l = pre.redistribute(mesh, want).to_local()                  # (b, S, P * dh)
+    npair = pairs // (mesh.size(gi) if gi is not None else 1)
+    k0 = npair * (mesh.get_local_rank(gi) if gi is not None else 0)
+    bl = pre_l.shape[0]
+    pre_l = pre_l.reshape(bl, s, npair, dh).permute(1, 2, 0, 3)     # (S, P, b, dh)
+    # r's gradient: each rank's pairs (and batch shard) only, summed across ranks
+    r_grad = [Partial() if (i == gi or pl.is_shard(0)) else Replicate() for i, pl in enumerate(rows)]
+    r_l = r.float().redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=r_grad)
+    r_l = r_l.reshape(pairs, dh, dh)[k0:k0 + npair]                  # (P, dh, dh)
+    if state is None:
+        c, n, h = (torch.zeros((num_heads, bl, dh), dtype=torch.float32, device=pre_l.device) for _ in range(3))
+        m = torch.full((num_heads, bl, dh), NEG, dtype=torch.float32, device=pre_l.device)
+    else:
+        c, n, m, h = (state[k].redistribute(mesh, rows).to_local().permute(1, 0, 2) for k in ("c", "n", "m", "h"))
+    heads = torch.arange(k0, k0 + npair, device=pre_l.device) % num_heads
+
+    def step(xt, r_l, c, n, m, h):
+        # h is alike on every rank; its gradient through this rank's pairs is a part of the whole
+        hp = _SumGrad.apply(h, mesh, gi) if gi is not None and torch.is_grad_enabled() else h
+        gates = torch.baddbmm(xt, hp.index_select(0, heads), r_l)   # (P, b, dh): this rank's pairs
+        if gi is not None:
+            gates = _GatherPairs.apply(gates, mesh, gi)               # (4H, b, dh)
+        zt, it, ft, ot = gates.view(4, num_heads, bl, dh).unbind(0)
+        return _slstm_update(zt, it, ft, ot, c, n, m)
+
+    ys = []
+    for t, xt in enumerate(pre_l):
+        if t == 1 and is_fake(pre_l):
+            # shapes only (the dry-run): every step after the first (whose state
+            # takes no gradient) is the same ops on the same shapes
+            c, n, m, h = _FakeSteps.apply(s - 1, step, xt, r_l, c, n, m, h)
+            ys += [h] * (s - 1)
+            break
+        c, n, m, h = step(xt, r_l, c, n, m, h)
+        ys.append(h)
+
+    def placed(t):
+        return L._FromLocal.apply(t, mesh, rows, rows)
+
+    y = placed(torch.stack(ys, dim=0).permute(2, 0, 1, 3))           # (B, S, H, dh)
+    return y, {k: placed(v.permute(1, 0, 2)) for k, v in (("c", c), ("n", n), ("m", m), ("h", h))}
+
+
+class _FakeSteps(torch.autograd.Function):
+    """``n`` steps of ``step`` on fake tensors, which carry shapes only, run
+    as one: each entered counter (``opcount.repeated``) charges the step
+    ``n`` times, and its backward ``n`` times too.  Its outputs are the one
+    step's."""
+
+    @staticmethod
+    def forward(ctx, n, step, *ins):
+        from repro_torch.roofline.opcount import repeated
+
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in ins]
+        # the step's own graph, kept whole for the backward (a remat region's hooks stay out of it)
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(lambda t: t, lambda t: t), repeated(n):
+            outs = step(*leaves)
+        ctx.n, ctx.leaves, ctx.outs = n, leaves, outs
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.roofline.opcount import repeated
+
+        want = [t for t in ctx.leaves if t.requires_grad]
+        with repeated(ctx.n):
+            got = iter(torch.autograd.grad(ctx.outs, want, grads, allow_unused=True))
+        return (None, None, *(next(got) if t.requires_grad else None for t in ctx.leaves))
+
+
+def _group(mesh, dim):
+    group = mesh.get_group(dim)
+    return group.size(), group.group_name
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose gradient is summed over mesh dim ``dim``: for a
+    tensor alike on every rank there, which each rank uses in a part of
+    the work (its gradient on each rank is that part's)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.group = _group(mesh, dim)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        _, name = ctx.group
+        out = torch.ops._c10d_functional.all_reduce(g.contiguous(), "sum", name)
+        return torch.ops._c10d_functional.wait_tensor(out), None, None
+
+
+class _GatherPairs(torch.autograd.Function):
+    """All-gather of each rank's (gate, head) pairs (P, b, dh) along dim 0
+    over mesh dim ``dim``.  What follows runs whole and alike on every
+    rank, so each holds the whole gradient, and the backward keeps its own
+    pairs' part of it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        size, name = _group(mesh, dim)
+        ctx.part = (mesh.get_local_rank(dim) * t.shape[0], t.shape[0])
+        out = torch.ops._c10d_functional.all_gather_into_tensor(t.contiguous(), size, name)
+        return torch.ops._c10d_functional.wait_tensor(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, size = ctx.part
+        return g[start:start + size], None, None
 
 
 def slstm_step(p, x1, state, num_heads: int):

@@ -15,9 +15,10 @@ is.  It sums, into an ``OpCosts`` with the keys of ``HloCosts.as_dict()``:
     runs them without TF32, on the CUDA cores, at another peak than bf16's;
   * HBM bytes: operand + result bytes per op.  Views (view, slice, select,
     transpose, unbind, expand, as_strided: any op whose result aliases an
-    operand without writing it) charge nothing.  An in-place write charges
-    the tensor it writes (a slice of a cache, not the cache) and what it
-    reads; an indexed in-place write (index_put_, scatter_, index_add_,
+    operand without writing it) and metadata queries (``prim::device``,
+    which DTensor asks of every local tensor it wraps) charge nothing.  An
+    in-place write charges the tensor it writes (a slice of a cache, not
+    the cache) and what it reads; an indexed in-place write (index_put_, scatter_, index_add_,
     index_copy_) twice its other operands, not the target; a gather (index,
     gather, index_select, embedding) twice its result plus its indices.
     Eager PyTorch runs each op as a kernel of its own, a round trip through
@@ -37,9 +38,12 @@ is.  It sums, into an ``OpCosts`` with the keys of ``HloCosts.as_dict()``:
     allocate (views and in-place results excluded), each freed when its
     tensor is: the counterpart of ``memory_analysis().temp_size_in_bytes``.
 
-``num_while_loops`` stays in the dict and is 0: a Python loop dispatches
-every iteration, so each iteration is counted as it runs and there is no
-trip count to multiply.
+A Python loop dispatches every iteration, so each iteration is counted
+as it runs.  The one exception is ``repeated(n)``: a loop of ``n``
+identical steps on fake tensors (shapes only, no values) runs one step
+inside it, which every entered counter charges ``n`` times, the
+counterpart of a while loop's trip count in the reference's HLO; each such
+loop adds one to ``num_while_loops``.
 
 DTensor learns each op's output shape by running the op once more on
 fake tensors of the global shapes (``ShardingPropagator.
@@ -50,6 +54,7 @@ charges nothing inside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
@@ -184,6 +189,31 @@ def _dot_flops(name: str, args, out) -> Tuple[float, torch.dtype]:
     return 0.0, None
 
 
+_ENTERED: list = []        # the counters entered, innermost last
+
+_SUMMED = ("dot_flops", "dot_flops_fp32", "hbm_bytes", "collective_tensor_bytes", "collective_wire_bytes")
+_KEYED = ("collective_by_type", "collective_count", "bytes_by_op")
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """What runs inside stands for ``n`` identical runs: each entered
+    counter charges its FLOPs, bytes and collectives ``n`` times (the peak
+    of live bytes is taken once)."""
+    before = [(c, {f: getattr(c.costs, f) for f in _SUMMED}, {f: dict(getattr(c.costs, f)) for f in _KEYED})
+              for c in _ENTERED]
+    yield
+    for counter, sums, keyed in before:
+        costs = counter.costs
+        for f, v in sums.items():
+            setattr(costs, f, v + n * (getattr(costs, f) - v))
+        for f, old in keyed.items():
+            table = getattr(costs, f)
+            for k in list(table):
+                table[k] = old.get(k, 0) + n * (table[k] - old.get(k, 0))
+        costs.num_while_loops += 1
+
+
 class OpCounter(TorchDispatchMode):
     """A ``TorchDispatchMode`` that sums this rank's op costs into
     ``self.costs`` (an ``OpCosts``), and listens to ``core.distributed``'s
@@ -211,6 +241,7 @@ class OpCounter(TorchDispatchMode):
 
         ShardingPropagator._propagate_tensor_meta_non_cached = propagate
         ROTATION_LISTENERS.append(self._rotation)
+        _ENTERED.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -218,6 +249,7 @@ class OpCounter(TorchDispatchMode):
 
         ShardingPropagator._propagate_tensor_meta_non_cached = self._saved_propagate
         ROTATION_LISTENERS.remove(self._rotation)
+        _ENTERED.remove(self)
         return super().__exit__(*exc)
 
     def _rotation(self, nbytes: int, group_size: int) -> None:
@@ -241,7 +273,7 @@ class OpCounter(TorchDispatchMode):
         name = func._overloadpacket.__name__
         returns = func._schema.returns
         alias = [r.alias_info for r in returns if r.alias_info is not None]
-        if name in _VIEWS or (alias and not any(a.is_write for a in alias)):
+        if name in _VIEWS or func.namespace == "prim" or (alias and not any(a.is_write for a in alias)):
             return
         in_place = any(a.is_write for a in alias)
         operands = _tensors((args, kwargs))

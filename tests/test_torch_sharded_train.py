@@ -13,7 +13,8 @@
   shards; qwen3 once more with a vocab of 509, which the model axis does
   not divide (the CE's weight is then whole there and each rank slices
   its vocab range), and qwen2.5 with 3 heads and 1 KV head (attention
-  then shards the queries);
+  then shards the queries); xlstm's sLSTM runs its time loop on local
+  shards, 4 of its 8 (gate, head) pairs on each rank of "model";
 * ``save_checkpoint`` of the sharded state after that step writes each
   leaf's global array; ``restore_checkpoint(..., shardings=)`` puts it back
   ``==`` onto (4, 1) and (1, 4) meshes, with the placements asked for, and

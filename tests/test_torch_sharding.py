@@ -229,6 +229,82 @@ GLOO_WORKER = textwrap.dedent(
     def rel(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
+    def seams(mesh):
+        # the readout's placement, recurrentgemma at batch 1 and the sLSTM's
+        # prefill, sharded against plain
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        from repro_torch.models import blocks as B, layers as L, recurrent as R
+        from repro_torch.roofline import count_ops
+        from repro_torch.train import make_serve_step
+
+        def place(t, *pls):
+            return distribute_tensor(t, mesh, list(pls), src_data_rank=None)
+
+        def pls(t):
+            return [repr(pl) for pl in t.placements]
+
+        res = {}
+        gen = torch.Generator().manual_seed(1)
+        cfg = dataclasses.replace(configs.get_reduced_config("recurrentgemma_2b"), activation_dtype="float32")
+        params = models.init_params(cfg, gen, "cpu")
+        sp = distribute(params, param_specs(params, mesh), mesh, src_data_rank=None)
+        # the tied readout: x whole but for its batch shards, the logits sharded as the table
+        for name, x, xpl in (("batch", torch.randn(4, cfg.d_model, generator=gen), (Shard(0), Replicate())),
+                             ("features", torch.randn(4, cfg.d_model, generator=gen), (Shard(1), Replicate())),
+                             ("one", torch.randn(1, cfg.d_model, generator=gen), (Replicate(), Replicate()))):
+            with torch.no_grad():
+                want = L.unembed(params["embed"], x)
+                got = L.unembed(sp["embed"], place(x, *xpl))
+            res["unembed_" + name] = {"placements": pls(got), "rel": rel(got.full_tensor(), want)}
+        # batch 1: the products split over "data" too, greedy tokens as plain
+        batch = serve.make_batch(cfg, 1, 12, "cpu")
+        sb = distribute(batch, batch_spec(batch, mesh), mesh, src_data_rank=None)
+        step = make_serve_step(cfg)
+        with torch.no_grad():
+            _, caches, _ = models.prefill(params, batch, cfg, 20)
+            with implicit_replication():
+                _, scaches, _ = models.prefill(sp, sb, cfg, 20)
+            tok = stok = batch["tokens"][:, -1].contiguous()
+            toks, stoks = [], []
+            for i in range(4):
+                tok, logits, caches = step(params, caches, tok, 12 + i)
+                with implicit_replication():
+                    stok, slogits, scaches = step(sp, scaches, stok, 12 + i)
+                stok = stok.full_tensor() if hasattr(stok, "full_tensor") else stok
+                toks.append(tok.tolist())
+                stoks.append(stok.tolist())
+            res["rg_batch1"] = {"tokens": [toks, stoks], "logits_rel": rel(slogits.full_tensor(), logits)}
+            blk = tree_map(lambda a: a[0], params["groups"][0][0])
+            sblk = tree_map(lambda a: a[0], sp["groups"][0][0])
+            h = torch.randn(1, 1, cfg.d_model, generator=gen)
+
+            def products(p, h):
+                rec = p["rec"]
+                return [L.dense(rec["win1"], h), L.dense(rec["win2"], h), R._rglru_gates(rec["rglru"], h)[0],
+                        L.dense(rec["wout"], h), L.swiglu(p["ffn"], h)]
+
+            with count_ops() as plain:
+                products(blk, h)
+            with implicit_replication(), count_ops() as shard:
+                outs = products(sblk, place(h, Replicate(), Replicate()))
+            res["rg_batch1"].update(flops=[plain.costs.dot_flops, shard.costs.dot_flops],
+                                    out_placements=[pls(t) for t in outs])
+        # the sLSTM's prefill on local shards (4 pairs per rank of the model dim), batch 4 and 1
+        cfg = dataclasses.replace(configs.get_reduced_config("xlstm_125m"), activation_dtype="float32")
+        params = models.init_params(cfg, gen, "cpu")
+        sp = distribute(params, param_specs(params, mesh), mesh, src_data_rank=None)
+        cell = tree_map(lambda a: a[0], params["groups"][0][1])["cell"]
+        scell = tree_map(lambda a: a[0], sp["groups"][0][1])["cell"]
+        for b, xpl in ((4, Shard(0)), (1, Replicate())):
+            x = torch.randn(b, 16, cfg.d_model, generator=gen)
+            with torch.no_grad():
+                y, st = R.slstm_seq(cell, x, cfg.num_heads)
+                with implicit_replication():
+                    sy, sst = R.slstm_seq(scell, place(x, xpl, Replicate()), cfg.num_heads)
+            res[f"slstm_b{b}"] = {"y_rel": rel(sy.full_tensor(), y),
+                                  "state_rel": max(rel(sst[k].full_tensor(), st[k]) for k in ("c", "n", "m", "h"))}
+        return res
+
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         res = {}
@@ -256,6 +332,7 @@ GLOO_WORKER = textwrap.dedent(
             res[arch] = {"loss": [float(got), float(want)], "loss_rel": rel(got, want),
                          "logits_rel": rel(got_logits, want_logits),
                          "shape": [list(got_logits.shape), list(want_logits.shape)]}
+        res.update(seams(mesh))
         if rank == 0:
             with open(f"{out}/result.json", "w") as fh:
                 json.dump(res, fh)
@@ -306,3 +383,32 @@ def test_sharded_decode_logits_on_gloo(gloo_run, arch):
     got = gloo_run[arch]
     assert got["shape"][0] == got["shape"][1]
     assert got["logits_rel"] <= 1e-5
+
+
+@pytest.mark.parametrize("case,placements", [
+    ("batch", ["Shard(dim=0)", "Shard(dim=1)"]),         # batch shards kept, the vocab sharded as the table
+    ("features", ["Replicate()", "Shard(dim=1)"]),       # a feature-sharded x is gathered, not contracted in parts
+    ("one", ["Replicate()", "Shard(dim=1)"]),            # batch 1: the data axis holds the logits whole
+])
+def test_tied_unembed_placed_by_port(gloo_run, case, placements):
+    got = gloo_run["unembed_" + case]
+    assert got["placements"] == placements
+    assert got["rel"] <= 1e-6
+
+
+def test_batch1_products_split_over_data(gloo_run):
+    got = gloo_run["rg_batch1"]
+    assert got["tokens"][0] == got["tokens"][1]
+    assert got["logits_rel"] <= 1e-5
+    plain, shard = got["flops"]
+    # the model axis splits each product in two, the idle data axis in two again
+    assert shard * 4 == plain, got["flops"]
+    # each made whole again on the data axis
+    assert all(pl[0] == "Replicate()" for pl in got["out_placements"]), got["out_placements"]
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_sharded_slstm_prefill_on_local_shards(gloo_run, batch):
+    got = gloo_run[f"slstm_b{batch}"]
+    assert got["y_rel"] <= 1e-5
+    assert got["state_rel"] <= 1e-5
