@@ -741,15 +741,14 @@ class SelfJoinEngine:
             "engine.count", "join",
             n=snap.num_points, eps=eps, tier=dec.execution,
         ), on_card(dev):
-            for pa, pb, real in chunks(eng.count_chunk):
-                with obs.span("engine.count.chunk", "dispatch"):
-                    step(pa, pb, real)
-                stats.num_chunks += 1
-                stats.num_device_dispatches += 1
-            counts = (
-                _unsort_counts(counts_sorted[:-1], snap.point_order)
-                .cpu().numpy().astype(np.int64)
-            )
+            n_chunks = obs.chunk_loop("engine.count.chunk", step, chunks(eng.count_chunk))
+            stats.num_chunks += n_chunks
+            stats.num_device_dispatches += n_chunks
+            with obs.span("engine.count.readback", "copy"):
+                counts = (
+                    _unsort_counts(counts_sorted[:-1], snap.point_order)
+                    .cpu().numpy().astype(np.int64)
+                )
         stats.num_results = int(counts.sum())
         stats.dim_blocks_skipped = int(skipped_tot)
         stats.dim_blocks_total = plan.num_pairs * snap.num_dim_blocks
@@ -812,16 +811,15 @@ class SelfJoinEngine:
             "engine.count_query", "join",
             nq=nq, eps=eps, tier=tab.execution,
         ), on_card(dev):
-            for pa, pb, real in tab.chunks(eng.count_chunk):
-                with obs.span("engine.count.chunk", "dispatch"):
-                    step(pa, pb, real)
-                stats.num_chunks += 1
-                stats.num_device_dispatches += 1
-            q_order = torch.from_numpy(qplan.q_order).to(dev)
-            counts = (
-                _unsort_counts(counts_sorted[:nq], q_order)
-                .cpu().numpy().astype(np.int64)
-            )
+            n_chunks = obs.chunk_loop("engine.count.chunk", step, tab.chunks(eng.count_chunk))
+            stats.num_chunks += n_chunks
+            stats.num_device_dispatches += n_chunks
+            with obs.span("engine.count.readback", "copy"):
+                q_order = torch.from_numpy(qplan.q_order).to(dev)
+                counts = (
+                    _unsort_counts(counts_sorted[:nq], q_order)
+                    .cpu().numpy().astype(np.int64)
+                )
         stats.num_results = int(counts.sum())
         stats.dim_blocks_skipped = int(skipped_tot)
         stats.dim_blocks_total = tab.num_pairs * snap.num_dim_blocks
@@ -892,11 +890,9 @@ class SelfJoinEngine:
                 n=snap.num_points, eps=eps, tier=dec.execution,
                 attempt=retries,
             ), on_card(dev):
-                for pa, pb, real in chunks(eng.pairs_chunk):
-                    with obs.span("engine.pairs.chunk", "dispatch"):
-                        step(pa, pb, real)
-                    stats.num_chunks += 1
-                    dispatches += 1
+                n_chunks = obs.chunk_loop("engine.pairs.chunk", step, chunks(eng.pairs_chunk))
+                stats.num_chunks += n_chunks
+                dispatches += n_chunks
                 num = int(offset)
             # exact totals are known after a full pass, so each overflow kind
             # resolves in one retry: widen the per-chunk rank window first,
@@ -924,12 +920,13 @@ class SelfJoinEngine:
                 )
             break
 
-        found = buf[:num]
-        pairs = found.cpu().numpy()
-        counts = (
-            torch.bincount(found[:, 0].long(), minlength=snap.num_points)
-            .cpu().numpy().astype(np.int64)
-        )
+        with obs.span("engine.pairs.readback", "copy", num=num):
+            found = buf[:num]
+            pairs = found.cpu().numpy()
+            counts = (
+                torch.bincount(found[:, 0].long(), minlength=snap.num_points)
+                .cpu().numpy().astype(np.int64)
+            )
         stats.num_results = int(counts.sum())
         stats.dim_blocks_total = plan.num_pairs * snap.num_dim_blocks
         stats.pairs_capacity = cap

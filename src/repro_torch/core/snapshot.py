@@ -18,15 +18,24 @@ referenced by a candidate pair list.
 
 ``snapshot_from_numpy`` carries a snapshot across packages: it takes the
 JAX package's ``GridSnapshot`` arrays as numpy and places them on a device.
+
+The build's phases are spans (cat ``plan``) inside the engine's
+``engine.snapshot_build`` / ``engine.snapshot_rebuild``: ``snapshot.reorder``
+(absent without REORDER), ``snapshot.grid``, ``snapshot.tile_plan`` and
+``snapshot.tables`` (the device placement); the lazy parts are spans of the
+join that first needs them, on a cache miss only: ``snapshot.dense_tables``
+and ``snapshot.chunks`` (a chunk size's padded pair list on the device).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.grid import (
     GridIndex,
     TilePlan,
@@ -65,15 +74,18 @@ def resolve_device(device) -> torch.device:
 
 
 def _chunk_list(
-    pair_a: np.ndarray, pair_b: np.ndarray, chunk: int, cache: dict, device
+    pair_a: np.ndarray, pair_b: np.ndarray, chunk: int, cache: dict, device,
+    span: Optional[str] = None,
 ) -> List[Chunk]:
-    """Padded device chunks of a candidate pair list, cached per chunk size."""
+    """Padded device chunks of a candidate pair list, cached per chunk size;
+    a miss is traced as ``span`` where one is named."""
     got = cache.get(chunk)
     if got is None:
-        got = [
-            (pa, pb, real)
-            for _, pa, pb, real in ops._chunks(pair_a, pair_b, chunk, device)
-        ]
+        with obs.span(span, "plan", chunk=chunk) if span else contextlib.nullcontext():
+            got = [
+                (pa, pb, real)
+                for _, pa, pb, real in ops._chunks(pair_a, pair_b, chunk, device)
+            ]
         cache[chunk] = got
     return got
 
@@ -114,7 +126,7 @@ class DenseTables:
 
     def chunks(self, chunk: int) -> List[Chunk]:
         return _chunk_list(self.plan.pair_a, self.plan.pair_b, chunk,
-                           self._chunk_cache, self.tiles.device)
+                           self._chunk_cache, self.tiles.device, "snapshot.chunks")
 
 
 class GridSnapshot:
@@ -166,22 +178,23 @@ class GridSnapshot:
         self._dense: Optional[DenseTables] = None
         self._chunk_cache: dict = {}
         if grid is not None:
-            self.tile_start = self._int32(pad_axis0(plan.tile_start, self.tile_rows))
-            self.tile_len = self._int32(pad_axis0(plan.tile_len, self.tile_rows))
-            # the grid-sort permutation (position -> original id) at its real
-            # length (count scatters and _unsort_counts address exactly N rows) ...
-            self.point_order = self._int32(grid.point_order)
-            # ... and padded to the bucket for the combined bipartite order,
-            # so the (query | data) order keeps one shape per bucket across
-            # snapshot swaps (pad rows are never decoded)
-            self.point_order_padded = self._int32(pad_axis0(grid.point_order, self.point_rows))
-            self.tiles = ops.make_tiles_device(
-                torch.from_numpy(grid.pts_sorted).to(self.device),
-                self.tile_start,
-                self.tile_len,
-                tile_size=config.tile_size,
-                dim_block=config.dim_block,
-            )
+            with obs.span("snapshot.tables", "plan", tiles=n_tiles):
+                self.tile_start = self._int32(pad_axis0(plan.tile_start, self.tile_rows))
+                self.tile_len = self._int32(pad_axis0(plan.tile_len, self.tile_rows))
+                # the grid-sort permutation (position -> original id) at its real
+                # length (count scatters and _unsort_counts address exactly N rows) ...
+                self.point_order = self._int32(grid.point_order)
+                # ... and padded to the bucket for the combined bipartite order,
+                # so the (query | data) order keeps one shape per bucket across
+                # snapshot swaps (pad rows are never decoded)
+                self.point_order_padded = self._int32(pad_axis0(grid.point_order, self.point_rows))
+                self.tiles = ops.make_tiles_device(
+                    torch.from_numpy(grid.pts_sorted).to(self.device),
+                    self.tile_start,
+                    self.tile_len,
+                    tile_size=config.tile_size,
+                    dim_block=config.dim_block,
+                )
         else:
             self.tiles = None
             self.tile_len = None
@@ -216,18 +229,22 @@ class GridSnapshot:
         dev = resolve_device(device)  # before any host work
         pts = np.ascontiguousarray(np.asarray(d, dtype=np.float32))
         eps = config.eps if eps is None else float(eps)
-        if isinstance(perm, str) and perm == _AUTO_PERM:
-            perm = None
-            if config.reorder and pts.shape[0]:
-                _, perm = variance_reorder(pts, config.sample_frac)
-        elif perm is not None:
-            perm = np.asarray(perm)
-        work = pts if perm is None else apply_reorder(pts, perm)
+        auto = isinstance(perm, str) and perm == _AUTO_PERM
+        reorders = bool(config.reorder and pts.shape[0]) if auto else perm is not None
+        with obs.span("snapshot.reorder", "plan") if reorders else contextlib.nullcontext():
+            if auto:
+                perm = variance_reorder(pts, config.sample_frac)[1] if reorders else None
+            elif perm is not None:
+                perm = np.asarray(perm)
+            work = pts if perm is None else apply_reorder(pts, perm)
         grid = plan = None
         index_eps = None
         if pts.shape[0]:
-            grid = build_grid(work, eps, config.k)  # eps=0-safe (unit bins)
-            plan = build_tile_plan(grid, config.tile_size, config.sortidu)
+            with obs.span("snapshot.grid", "plan"):
+                grid = build_grid(work, eps, config.k)  # eps=0-safe (unit bins)
+            with obs.span("snapshot.tile_plan", "plan") as sp:
+                plan = build_tile_plan(grid, config.tile_size, config.sortidu)
+                sp.set(tiles=plan.num_tiles, pairs=plan.num_pairs)
             index_eps = float(eps)
         return cls(
             config, pts, perm, work, index_eps, grid, plan,
@@ -304,23 +321,25 @@ class GridSnapshot:
     def chunks(self, chunk: int) -> List[Chunk]:
         """Padded device chunks of the self-join candidate pair list."""
         return _chunk_list(
-            self.plan.pair_a, self.plan.pair_b, chunk, self._chunk_cache, self.device
+            self.plan.pair_a, self.plan.pair_b, chunk, self._chunk_cache, self.device,
+            "snapshot.chunks",
         )
 
     def dense_tables(self) -> DenseTables:
         """Build (lazily, once per snapshot) the dense-tier tables."""
         if self._dense is None:
             cfg = self.config
-            plan = make_dense_plan(self.num_points, cfg.tile_size)
-            start = self._int32(pad_axis0(plan.tile_start, self.dense_rows))
-            length = self._int32(pad_axis0(plan.tile_len, self.dense_rows))
-            tiles = ops.make_tiles_device(
-                torch.from_numpy(self.grid.pts_sorted).to(self.device),
-                start,
-                length,
-                tile_size=cfg.tile_size,
-                dim_block=cfg.dim_block,
-            )
+            with obs.span("snapshot.dense_tables", "plan"):
+                plan = make_dense_plan(self.num_points, cfg.tile_size)
+                start = self._int32(pad_axis0(plan.tile_start, self.dense_rows))
+                length = self._int32(pad_axis0(plan.tile_len, self.dense_rows))
+                tiles = ops.make_tiles_device(
+                    torch.from_numpy(self.grid.pts_sorted).to(self.device),
+                    start,
+                    length,
+                    tile_size=cfg.tile_size,
+                    dim_block=cfg.dim_block,
+                )
             self._dense = DenseTables(
                 plan=plan, tiles=tiles, tile_len=length, tile_start=start
             )

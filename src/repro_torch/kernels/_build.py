@@ -24,7 +24,6 @@ from typing import Dict, Iterable
 
 import torch
 
-from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -117,7 +116,6 @@ def _finish_build(name: str, out: Path, tmp: str, proc) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)
-    obs.event("kernels.build", "compile", source=name)
 
 
 def build_all(names: Iterable[str] = SOURCES) -> None:

@@ -12,8 +12,10 @@ A copy of the JAX package's ``repro.obs`` (kept separate so that
 - :mod:`repro_torch.obs.report` -- the per-phase/per-worker breakdown CLI
   (``python -m repro_torch.obs.report TRACE.json``).
 
-The port's engine emits the same spans and events at the same seams as the
-reference engine, so ``capture()`` windows read alike:
+The port's engine emits the reference engine's spans and events at the
+same seams, and a few more of its own (the index build's phases,
+``snapshot.*``, and the copies of a join's answer to the host,
+``engine.*.readback``), so ``capture()`` windows read alike:
 
     from repro_torch import obs
 
@@ -22,7 +24,8 @@ reference engine, so ``capture()`` windows read alike:
     assert cap.span_count(cat="dispatch") == result.stats.num_device_dispatches
 
 Mirroring and recording only happen while tracing is enabled (normally via
-``obs.capture()``), so production paths pay a single attribute check.
+``obs.capture()``), so production paths pay a single attribute check; a
+chunk loop (``chunk_loop``) pays it once per loop, not per chunk.
 """
 
 from __future__ import annotations
@@ -38,13 +41,16 @@ from repro_torch.obs.trace import (
     SpanEvent,
     clear,
     disable,
+    chunk_loop,
     dropped_count,
     enable,
     enabled,
+    epoch_ns,
     event,
     event_count,
     events,
     span,
+    span_series,
     to_chrome_trace,
     write_chrome_trace,
 )
@@ -62,8 +68,11 @@ __all__ = [
     "events",
     "event_count",
     "dropped_count",
+    "epoch_ns",
     "span",
     "event",
+    "span_series",
+    "chunk_loop",
     "to_chrome_trace",
     "write_chrome_trace",
     "inc",
@@ -189,12 +198,14 @@ def request_log(kind: str, stats) -> None:
 
 
 class Capture:
-    """Result of an ``obs.capture()`` window: events, registry delta, drops."""
+    """Result of an ``obs.capture()`` window: events, registry delta, drops,
+    and the Unix time (ns) the events' ``ts_us`` count from."""
 
     def __init__(self):
         self.events: List[SpanEvent] = []
         self.metrics: Dict = {}
         self.dropped: int = 0
+        self.epoch_ns: int = 0
 
     def spans(self, name: Optional[str] = None, cat: Optional[str] = None) -> List[SpanEvent]:
         return [
@@ -211,10 +222,10 @@ class Capture:
         return metric_value(self.metrics, name, **labels)
 
     def chrome_trace(self) -> dict:
-        return to_chrome_trace(self.events)
+        return to_chrome_trace(self.events, epoch_ns=self.epoch_ns)
 
     def write_chrome_trace(self, path: str) -> str:
-        return write_chrome_trace(path, self.events)
+        return write_chrome_trace(path, self.events, epoch_ns=self.epoch_ns)
 
 
 class capture:
@@ -254,6 +265,7 @@ class capture:
         cap = self._cap
         cap.events = events()
         cap.dropped = dropped_count()
+        cap.epoch_ns = epoch_ns()
         cap.metrics = self._registry.diff(self._before)
         disable()
         clear()

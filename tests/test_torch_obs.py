@@ -28,11 +28,12 @@ from repro import obs as ref_obs
 from repro.join import SimilarityIndex as RefIndex
 from repro.obs import report as ref_report
 from repro_torch import obs
-from repro_torch.core import SelfJoinConfig, SelfJoinEngine
+from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine
 from repro_torch.join import SimilarityIndex
 from repro_torch.obs import report as obs_report
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import _NOOP, _state
+from torch.profiler import record_function
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -74,6 +75,36 @@ def test_ring_buffer_bounds_and_drop_counter():
     finally:
         obs.disable()
         obs.clear()
+
+
+def test_span_series_counts_its_spans_toward_capacity():
+    obs.enable(capacity=4)
+    try:
+        obs.event("a", "test")
+        t = obs.epoch_ns()
+        obs.span_series("s", "test", [t + 1000 * i for i in range(6)])  # 5 spans: a and s0 drop
+        assert (obs.event_count(), obs.dropped_count()) == (4, 2)
+        obs.event("b", "test")  # s1 drops
+        evts = obs.events()
+        assert [e.name for e in evts] == ["s", "s", "s", "b"]
+        assert [e.ts_us for e in evts[:3]] == pytest.approx([2.0, 3.0, 4.0])
+        assert {e.dur_us for e in evts[:3]} == {1.0}
+        assert (obs.event_count(), obs.dropped_count()) == (4, 3)
+    finally:
+        obs.disable()
+        obs.clear()
+
+
+def test_chunk_loop_keeps_the_chunks_before_a_failure():
+    def step(i):
+        if i == 3:
+            raise RuntimeError("boom")
+
+    with pytest.raises(RuntimeError, match="boom"):
+        with obs.capture() as cap:
+            with obs.span("join", "test"):
+                obs.chunk_loop("loop.chunk", step, [(i,) for i in range(6)])
+    assert cap.span_count("loop.chunk", "dispatch") == 3 and cap.span_count("join") == 1
 
 
 def test_span_nesting_depth_and_attrs():
@@ -221,11 +252,19 @@ def _engines(data, cfg):
             SelfJoinEngine(data, SelfJoinConfig(**cfg), device="cpu"))
 
 
+# the port's spans that the reference has no counterpart of: the index
+# build's phases and the copies of a join's answer to the host
+PORT_ONLY = ("snapshot.", "engine.count.readback", "engine.pairs.readback")
+
+
 def _span_counts(cap):
-    """(name, category) counts, without the reference's "compile" instants:
-    ``engine.trace`` marks an XLA trace (a jit cache miss, so it depends on
-    what the process compiled before); the port builds no programs."""
-    return collections.Counter((e.name, e.cat) for e in cap.events if e.cat != "compile")
+    """(name, category) counts, without the reference's "compile" instants
+    (``engine.trace`` marks an XLA trace (a jit cache miss, so it depends on
+    what the process compiled before); the port builds no programs) and
+    without the port's own spans (``PORT_ONLY``): the port's spans are a
+    superset of the reference's."""
+    return collections.Counter((e.name, e.cat) for e in cap.events
+                               if e.cat != "compile" and not e.name.startswith(PORT_ONLY))
 
 
 @pytest.mark.parametrize("execution", ["indexed", "dense"])
@@ -244,8 +283,9 @@ def test_engine_dispatch_span_parity(dataset_case, execution):
     assert cap.metric("selfjoin_results_total", path="engine", mode="pairs") == pres.stats.num_results
     np.testing.assert_array_equal(cres.counts, brute_counts(data, eps))
     assert pair_set(pres.pairs) == pair_set(brute_pairs(data, eps)), name
-    # the same spans and metric values as the reference's
+    # the same spans and metric values as the reference's, and the port's own
     assert _span_counts(cap) == _span_counts(ref_cap), name
+    assert cap.span_count("engine.count.readback", "copy") == cap.span_count("engine.pairs.readback", "copy") == 1
     for metric in ("selfjoin_device_dispatches_total", "selfjoin_joins_total", "selfjoin_chunks_total",
                    "selfjoin_candidates_total", "selfjoin_results_total", "selfjoin_overflow_retries_total"):
         for mode in ("count", "pairs"):
@@ -287,6 +327,154 @@ def test_index_auto_compact_span():
     assert _span_counts(cap) == _span_counts(ref_cap)
 
 
+# -- the chunk loops ---------------------------------------------------------
+
+def _join(eng, mode, data):
+    """One join of ``mode`` on ``eng``: (the result, its dispatch spans' names)."""
+    if mode == "count":
+        return eng.count(), "engine.count.chunk"
+    if mode == "count_query":
+        return eng.count_query(data[:97]), "engine.count.chunk"
+    return eng.pairs(), "engine.pairs.chunk"
+
+
+MODES = ["count", "count_query", "pairs"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_untraced_chunk_loops_call_the_tracer_once_a_join(monkeypatch, mode):
+    """Tracing off, a join makes as many tracer calls at one tile pair a
+    chunk as at the default chunks: none of them per chunk."""
+    d = make_dataset("exponential", 403, 16, seed=5)
+    cfg = SelfJoinConfig(eps=0.06, k=4, tile_size=16)
+    calls = collections.Counter()
+    for name in ("span", "event", "span_series", "chunk_loop", "enabled", "inc", "observe", "set_gauge",
+                 "mirror_selfjoin_stats"):
+        real = getattr(obs, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(obs, name, counted)
+    seen = {}
+    for label, ecfg in (("default", EngineConfig()), ("one", EngineConfig(count_chunk=1, pairs_chunk=1))):
+        eng = SelfJoinEngine(d, cfg, ecfg, device="cpu")
+        calls.clear()
+        res, _ = _join(eng, mode, d)
+        seen[label] = (res.stats.num_device_dispatches, dict(calls))
+    assert seen["one"][0] > 10 * seen["default"][0] > 0
+    assert seen["one"][1] == seen["default"][1]
+    assert obs.event_count() == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_traced_chunk_spans_are_contiguous_inside_their_join(mode):
+    d = make_dataset("exponential", 403, 16, seed=5)
+    eng = SelfJoinEngine(d, SelfJoinConfig(eps=0.06, k=4, tile_size=16),
+                         EngineConfig(count_chunk=3, pairs_chunk=3), device="cpu")
+    with obs.capture() as cap:
+        res, chunk = _join(eng, mode, d)
+    assert cap.span_count(cat="dispatch") == res.stats.num_device_dispatches > 1
+    assert cap.span_count(chunk, "dispatch") == res.stats.num_chunks
+    join = cap.spans(cat="join")
+    assert len(join) == 1
+    join = join[0]
+    spans = cap.spans(chunk)
+    assert {e.depth for e in spans} == {join.depth + 1}
+    assert join.ts_us <= spans[0].ts_us and spans[-1].ts_us + spans[-1].dur_us <= join.ts_us + join.dur_us
+    for a, b in zip(spans, spans[1:]):
+        assert a.ts_us + a.dur_us == pytest.approx(b.ts_us, abs=1e-6)
+    readback = cap.spans(chunk.rsplit(".", 1)[0] + ".readback", "copy")
+    assert len(readback) == 1
+    assert readback[0].ts_us >= spans[-1].ts_us + spans[-1].dur_us - 1e-6
+    if mode != "pairs":  # the pairs' copies follow their join span
+        assert readback[0].ts_us + readback[0].dur_us <= join.ts_us + join.dur_us
+        assert readback[0].depth == join.depth + 1
+
+
+def test_a_small_capture_drops_exactly_the_excess():
+    d = make_dataset("exponential", 403, 16, seed=5)
+    cfg, ecfg = SelfJoinConfig(eps=0.06, k=4, tile_size=16), EngineConfig(count_chunk=2)
+    with obs.capture() as full:
+        res = SelfJoinEngine(d, cfg, ecfg, device="cpu").count()
+    chunks = res.stats.num_chunks
+    names = [e.name for e in full.events]
+    assert full.dropped == 0 and chunks > 8
+    for capacity in (5, chunks - 3, len(names) - 1):
+        with obs.capture(capacity) as cap:
+            SelfJoinEngine(d, cfg, ecfg, device="cpu").count()
+        assert cap.dropped == len(names) - capacity
+        assert [e.name for e in cap.events] == names[-capacity:]
+
+
+@pytest.mark.parametrize("execution,reorder", [("indexed", True), ("dense", True), ("indexed", False)])
+def test_index_build_phase_spans(execution, reorder):
+    """The build's four phases nest in its span; the dense tables and each
+    chunk size's list fire on their first join only."""
+    d = make_dataset("exponential", 403, 16, seed=5)
+    cfg = SelfJoinConfig(eps=0.06, k=4, tile_size=16, execution=execution, reorder=reorder)
+    phases = ["snapshot.reorder"] * reorder + ["snapshot.grid", "snapshot.tile_plan", "snapshot.tables"]
+    with obs.capture() as cap:
+        eng = SelfJoinEngine(d, cfg, EngineConfig(count_chunk=8, pairs_chunk=4), device="cpu")
+    build = cap.spans("engine.snapshot_build", "plan")[0]
+    got = [e for e in cap.events if e.name.startswith("snapshot.")]
+    assert [e.name for e in got] == phases
+    for e in got:
+        assert e.cat == "plan" and e.depth == build.depth + 1
+        assert build.ts_us <= e.ts_us and e.ts_us + e.dur_us <= build.ts_us + build.dur_us
+    lazy = ["snapshot.dense_tables"] * (execution == "dense") + ["snapshot.chunks"]
+    with obs.capture() as cap:
+        eng.count(0.05)
+        eng.count(0.06)
+        eng.pairs(0.06)
+    names = [e.name for e in cap.events if e.name.startswith("snapshot.")]
+    assert names == lazy + ["snapshot.chunks"]  # the pairs' chunk size
+    assert [e.attrs["chunk"] for e in cap.spans("snapshot.chunks")] == [8, 4]
+    with obs.capture() as cap:
+        eng.count(0.06)
+        eng.pairs(0.06)
+    assert not [e for e in cap.events if e.name.startswith("snapshot.")]
+    with obs.capture() as cap:
+        eng.count(0.08)  # over the index's radius: a rebuild in the REORDER frame
+    rebuild = cap.spans("engine.snapshot_rebuild", "plan")[0]
+    got = [e for e in cap.events if e.name.startswith("snapshot.")
+           and rebuild.ts_us <= e.ts_us <= rebuild.ts_us + rebuild.dur_us]
+    assert [e.name for e in got] == phases and {e.depth for e in got} == {rebuild.depth + 1}
+    assert [e.name for e in cap.events if e.name.startswith("snapshot.") and e not in got] == lazy
+
+
+def test_spans_and_the_profiler_share_one_clock():
+    """Under the bridge each span starts on the Unix clock just after its
+    ``record_function`` range, and the Chrome export writes that time."""
+    d = make_dataset("exponential", 403, 16, seed=5)
+    eng = SelfJoinEngine(d, SelfJoinConfig(eps=0.06, k=4, tile_size=16), EngineConfig(count_chunk=16),
+                         device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm"):  # the first range's one-time set-up
+            pass
+        with obs.capture(torch_bridge=True) as cap:
+            eng.count()
+            eng.pairs()
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    spans = [e for e in cap.events if e.ph == "X"]
+    ranges = collections.defaultdict(list)
+    for e in prof.events():
+        ranges[e.name].append(t0 + e.time_range.start * 1e3)
+    starts = collections.defaultdict(list)
+    for e in spans:
+        starts[e.name].append(cap.epoch_ns + e.ts_us * 1e3)
+    assert len(spans) > 20
+    for name, got in starts.items():
+        want = sorted(ranges[name])
+        assert len(want) == len(got), name
+        for g, w in zip(sorted(got), want):
+            assert -50e3 <= g - w <= 1e6, (name, g - w)
+    chrome = [e for e in cap.chrome_trace()["traceEvents"] if e["ph"] == "X"]
+    for e, c in zip(spans, chrome):
+        assert c["ts"] == pytest.approx(cap.epoch_ns / 1e3 + e.ts_us, abs=1.0)
+
+
 # -- cross-package reports ---------------------------------------------------
 
 def test_reports_read_each_others_traces(tmp_path):
@@ -310,10 +498,16 @@ def test_reports_read_each_others_traces(tmp_path):
         reports[path] = got
     a, b = reports[port_path], reports[ref_path]
     compiles = ref_cap.span_count(cat="compile")
-    assert (a["num_spans"], a["num_instants"]) == (b["num_spans"], b["num_instants"] - compiles)
-    assert ({c: {n: v["count"] for n, v in names.items()} for c, names in a["phases"].items()}
-            == {c: {n: v["count"] for n, v in names.items()} for c, names in b["phases"].items()
-                if c != "compile"})
+    own = sum(e.name.startswith(PORT_ONLY) for e in cap.events)
+    assert own > 0
+    assert (a["num_spans"] - own, a["num_instants"]) == (b["num_spans"], b["num_instants"] - compiles)
+
+    def shared(rep):
+        counts = {c: {n: v["count"] for n, v in names.items() if not n.startswith(PORT_ONLY)}
+                  for c, names in rep["phases"].items() if c != "compile"}
+        return {c: names for c, names in counts.items() if names}
+
+    assert shared(a) == shared(b)
     # the CLI, as a user runs it
     out = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", ref_path, "--json"],
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},

@@ -261,8 +261,9 @@ def test_service_spans_equal_stats_counters():
     for kind in ("range_count", "range_pairs", "knn"):
         assert cap.metric("service_requests_total", kind=kind) == ref_cap.metric(
             "service_requests_total", kind=kind) > 0
-    # the two packages emit the same spans, by name and category
-    names = sorted((e.name, e.cat) for e in cap.events)
+    # the two packages emit the same spans, by name and category, beside the
+    # port's own index-build phases (over-radius temporary snapshots)
+    names = sorted((e.name, e.cat) for e in cap.events if not e.name.startswith("snapshot."))
     assert names == sorted((e.name, e.cat) for e in ref_cap.events)
     assert cap.dropped == 0
     tw.assert_totals()
