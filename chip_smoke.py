@@ -71,6 +71,13 @@ Phases, each printing one JSON line:
    against the plain version) and the bound.  Its sweep and its full-width
    part each run right after phase 2's, so a faulty kernel fails the run
    before the long phases;
+5b. tile_plan -- the self-join's tile-pair list (``csrc/tile_plan.cu``,
+   two launches) against ``tile_pairs_plain`` run on the same card tables,
+   at the benchmark's Syn16D2M (1,000,000 points, eps 0.05) and Syn64D2M
+   (500,000, eps 0.18) sizes and Syn16D2M uncut (``TILE_PLAN_CASES``): the
+   lists equal element for element, each version's ms and peak card bytes,
+   the kernel's bound (the bytes it writes); then the launches of the main
+   path's three index builds, counted from 0 (two each);
 6. profile -- windows of Syn16D2M count chunks, CoocTexture dense count
    chunks, CoocTexture dense pairs chunks and CoocTexture indexed pairs
    chunks, each run as the engine runs them, by the host clock, CUDA
@@ -294,6 +301,17 @@ SYN_EPS = 0.03
 COOC_EPS = 0.1
 WIDE_N = 200_000          # Syn64D2M cut from 2,000,000 points to 200,000
 WIDE_EPS = (0.1, 0.2)
+
+# phase 5b: the self-join's tile plan (csrc/tile_plan.cu) against its plain
+# version on the same card tables: (name, dataset, share of its 2,000,000
+# points, eps), the benchmark's two cells at their sizes and Syn16D2M uncut
+TILE_PLAN_CASES = (
+    ("syn16d2m", "Syn16D2M", 0.5, 0.05),
+    ("syn64d2m", "Syn64D2M", 0.25, 0.18),
+    ("syn16d2m_uncut", "Syn16D2M", 1.0, 0.05),
+)
+TILE_PLAN_SOURCE = "src/repro_torch/csrc/tile_plan.cu"
+TILE_PLAN_REPLACES = "none: the JAX package's plan is host numpy (src/repro/core/grid.py:build_tile_plan)"
 
 KERNELS = {
     # name: (module attribute, CUDA source, TPU kernel replaced, mask mode)
@@ -1489,6 +1507,66 @@ def attn_check(torch, got, want, rtol, atol, what):
     check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
     check(bool((ratio <= 1).all()), f"{what}: differs from plain beyond {rtol} |want| + {atol}")
     return float(diff.max()), float(ratio.max())
+
+
+def peak_call(torch, fn):
+    """``fn()``'s result and its peak card bytes above what was allocated
+    before the call, its own result included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_tile_plan(torch, np):
+    """The tile plan's two launches against ``tile_pairs_plain`` run on the
+    same card tables, over TILE_PLAN_CASES: the pair lists equal element for
+    element and the candidate sums equal; each version's ms by CUDA events
+    (the kernel's includes the host's read of the kept total between its
+    launches) and its peak card bytes; the kernel's bound, the bytes it
+    writes at PEAK_HBM_BYTES."""
+    from repro_torch.core import SelfJoinConfig
+    from repro_torch.core.grid import build_grid, tile_plan_tables
+    from repro_torch.core.reorder import variance_reorder
+    from repro_torch.data import paper_dataset
+    from repro_torch.kernels import tile_plan
+
+    cells = {}
+    for name, dataset, share, eps in TILE_PLAN_CASES:
+        cfg = SelfJoinConfig(eps=eps)
+        work, _ = variance_reorder(paper_dataset(dataset, share), cfg.sample_frac)
+        g = build_grid(work, eps, cfg.k)
+        tables, _, _, _, pairs_total = tile_plan_tables(g, cfg.tile_size, "cuda")
+        del work
+
+        def kernel():
+            return tile_plan.tile_pairs(*tables, eps=eps, sortidu=True)
+
+        def plain():
+            return tile_plan.tile_pairs_plain(*tables, eps=float(np.float32(eps)), sortidu=True)
+
+        before = tile_plan.LAUNCHES["tile_plan"]
+        (pa, pb, nc), kernel_peak = peak_call(torch, kernel)
+        check(tile_plan.LAUNCHES["tile_plan"] == before + 2, f"tile plan {name}: not two launches")
+        (qa, qb, qc), plain_peak = peak_call(torch, plain)
+        check(torch.equal(pa, qa) and torch.equal(pb, qb) and nc == qc,
+              f"tile plan {name}: the kernel's list or candidates differ from the plain version's")
+        pairs = int(pa.shape[0])
+        del pa, pb, qa, qb
+        n_tiles = int(tables[0].shape[0])
+        cells[name] = {
+            "points": int(round(share * 2_000_000)), "eps": eps, "tiles": n_tiles, "pairs_total": pairs_total,
+            "pairs": pairs, "equal": True, "ms": event_ms(torch, kernel, 5), "plain_ms": event_ms(torch, plain, 3),
+            "bound_ms": (8 * pairs + 16 * n_tiles) / PEAK_HBM_BYTES * 1e3,
+            "peak_bytes": kernel_peak, "plain_peak_bytes": plain_peak,
+        }
+        emit({"phase": "tile_plan", "cell": name, **cells[name]})
+        del tables
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells
 
 
 def phase_attention_sweep(torch, np, fa):
@@ -4703,7 +4781,7 @@ def main() -> int:
     try:
         from repro_torch.core import SelfJoinConfig, SelfJoinEngine
         from repro_torch.data import paper_dataset
-        from repro_torch.kernels import _build, dense_tile, distance_tile, flash_attention
+        from repro_torch.kernels import _build, dense_tile, distance_tile, flash_attention, tile_plan
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})", file=sys.stderr)
         return 2
@@ -4731,8 +4809,11 @@ def main() -> int:
     phase_k2_sweep(torch, np)
     phase_dense_sweep(torch, np)
     phase_attention_sweep(torch, np, flash_attention)
+    plan_cells = phase_tile_plan(torch, np)
 
-    # main-path inputs: build the phase-3 and phase-4 engines (host plans)
+    # main-path inputs: build the phase-3 and phase-4 engines (their tile
+    # plans on the card, two launches each, counted from 0)
+    tile_plan.LAUNCHES["tile_plan"] = 0
     syn = paper_dataset("Syn16D2M", SYN_N / 2_000_000)
     syn_cfg = SelfJoinConfig(eps=SYN_EPS)
     t0 = time.perf_counter()
@@ -4747,6 +4828,8 @@ def main() -> int:
     for size in (dense_engine.engine.count_chunk, dense_engine.engine.pairs_chunk):
         cooc_dense.chunks(size)
     dense_host_s = time.perf_counter() - t0
+    plan_launches = tile_plan.LAUNCHES["tile_plan"]
+    check(plan_launches == 2 * 3, f"the main path's three index builds launched the tile plan {plan_launches} times")
     emit({"phase": "plans", "syn16d2m_host_plan_s": syn_host_s,
           "syn16d2m_tile_pairs": syn_engine.plan.num_pairs,
           "cooc_tile_pairs": cooc_engine.plan.num_pairs, "cooc_dense_host_plan_s": dense_host_s,
@@ -4877,6 +4960,15 @@ def main() -> int:
         row["model_serve_launches"] = model_serve[row["name"]]   # phase 11 checks it is 0
         row["model_train_launches"] = model_train[row["name"]]   # phase 12: the dedup's K1 and K2 steps only
         row["model_shard_launches"] = model_shard[row["name"]]   # phase 13 checks it is 0
+    # the tile plan: launches by the main path's three index builds; its
+    # figures at the benchmark's Syn16D2M size, every case's under "cells"
+    syn_plan = plan_cells["syn16d2m"]
+    rows.append({
+        "name": "tile_plan", "route": "cuda", "source": TILE_PLAN_SOURCE, "replaces": TILE_PLAN_REPLACES,
+        "launches": plan_launches, "equal": all(c["equal"] for c in plan_cells.values()), "ms": syn_plan["ms"],
+        "plain_ms": syn_plan["plain_ms"], "bound_ms": syn_plan["bound_ms"], "bound_by": "hbm write",
+        "timing": "cuda events", "cells": plan_cells,
+    })
     emit({"kernels": rows, "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,14 +10,19 @@ Tile adaptation (DESIGN.md #1.1): the per-thread 3^k adjacent-cell walk of the
 paper's CUDA kernel becomes *candidate tile-pair generation*: every non-empty cell is
 split into fixed-size tiles and each (cell, adjacent cell) pair contributes
 its tile cross-product to a flat work list that the distance kernel consumes
-as dense, regular work.
+as dense, regular work.  The self-join's list is written where the index is
+placed (``build_tile_plan``: a CUDA kernel on a card); the query plan's on
+the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import tile_plan
 
 _MAX_LINEAR = np.int64(2) ** 62
 
@@ -288,18 +293,14 @@ def _expand_cell_pairs_to_tile_pairs(
     return pair_a, pair_b
 
 
-def build_tile_plan(
-    grid: GridIndex,
-    tile_size: int,
-    sortidu: bool,
-    cell_pairs: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-) -> TilePlan:
-    """Split cells into tiles and expand cell pairs into tile pairs.
+def tile_plan_tables(grid: GridIndex, tile_size: int, device="cpu"):
+    """The tables ``kernels.tile_plan.tile_pairs`` reads, placed on ``device``.
 
-    SORTIDU (Sec. 4.3) is applied at tile granularity: each tile's [min,max]
-    u-coordinate window is precomputed (points are u-sorted within cells) and
-    a tile pair is pruned when the windows are more than eps apart -- the
-    paper's Fig. 3 r..s window, vectorized.
+    Returns ``(tables, tile_start, tile_len, tile_cell, pairs_total)``: the
+    eight tensors in ``tile_pairs``' order, the tiles as numpy (from
+    ``split_cells_into_tiles``), and the number of tile pairs before SORTIDU.
+    The host does only per-cell work here (tiles, the adjacent-cell probe,
+    each tile's u window).
     """
     t = int(tile_size)
     counts = grid.cell_count
@@ -308,45 +309,55 @@ def build_tile_plan(
         grid.cell_start, counts, t
     )
 
-    if cell_pairs is None:
-        cell_pairs = adjacent_cell_pairs(grid)
-    ca, cb = cell_pairs
+    # each A tile walks its cell's adjacent cells in cell order: with cells
+    # numbered in order, each cell's tiles contiguous and the cell pairs
+    # unique, that writes the tile pairs in sorted order
+    ca, cb = adjacent_cell_pairs(grid)
+    srt = np.lexsort((cb, ca))
+    ca, cb = ca[srt], cb[srt]
+    adj_ptr = np.concatenate([[0], np.cumsum(np.bincount(ca, minlength=grid.num_cells))])
+    pairs_total = int((n_tiles_per_cell[ca] * n_tiles_per_cell[cb]).sum())
 
-    pair_a, pair_b = _expand_cell_pairs_to_tile_pairs(
-        ca, cb, n_tiles_per_cell, n_tiles_per_cell,
-        cell_tile_first, cell_tile_first,
+    # per-tile u window; points are u-sorted within each cell, so the window
+    # is [first point, last point] of the tile
+    u = grid.pts_sorted[:, grid.u_dim]
+    dev = torch.device(device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    tables = (
+        put(tile_cell, np.int32), put(tile_len, np.int32),
+        put(u[tile_start], np.float32), put(u[tile_start + tile_len - 1], np.float32),
+        put(cell_tile_first, np.int32), put(n_tiles_per_cell, np.int32),
+        put(adj_ptr, np.int64), put(cb, np.int32),
     )
+    return tables, tile_start, tile_len, tile_cell, pairs_total
 
-    total_pairs = int(pair_a.size)
 
-    if sortidu and pair_a.size:
-        u = grid.pts_sorted[:, grid.u_dim]
-        # per-tile u window; points are u-sorted within each cell, so the
-        # window is [first point, last point] of the tile
-        u_lo = u[tile_start]
-        u_hi = u[tile_start + tile_len - 1]
-        gap_lo = u_lo[pair_b] - u_hi[pair_a]   # b entirely above a
-        gap_hi = u_lo[pair_a] - u_hi[pair_b]   # a entirely above b
-        keep = np.maximum(gap_lo, gap_hi) <= np.float32(grid.eps)
-        pair_a, pair_b = pair_a[keep], pair_b[keep]
+def build_tile_plan(grid: GridIndex, tile_size: int, sortidu: bool, device="cpu") -> TilePlan:
+    """Split cells into tiles and list the candidate tile pairs, on ``device``.
 
-    if pair_a.size:
-        # group the work list by A tile: consecutive kernel grid steps revisit
-        # the same A block (and the same order as the JAX package's plan, so the
-        # two packages evaluate identical chunks)
-        order = np.lexsort((pair_b, pair_a))
-        pair_a, pair_b = pair_a[order], pair_b[order]
-
-    num_candidates = int((tile_len[pair_a] * tile_len[pair_b]).sum()) if pair_a.size else 0
-
+    SORTIDU (Sec. 4.3) is applied at tile granularity: each tile's [min,max]
+    u-coordinate window is precomputed (points are u-sorted within cells) and
+    a tile pair is pruned when the windows are more than eps apart -- the
+    paper's Fig. 3 r..s window.  The host does the per-cell work
+    (``tile_plan_tables``); ``kernels.tile_plan.tile_pairs`` writes the
+    per-tile-pair list where the tables are placed (the CUDA kernel on a card,
+    its plain version on the CPU), already grouped by A tile in the JAX
+    package's ``lexsort((pair_b, pair_a))`` order, so the two packages
+    evaluate identical chunks.  The list comes back to the host.
+    """
+    tables, tile_start, tile_len, tile_cell, pairs_total = tile_plan_tables(grid, tile_size, device)
+    pair_a, pair_b, num_candidates = tile_plan.tile_pairs(*tables, eps=grid.eps, sortidu=sortidu)
     return TilePlan(
-        tile_size=t,
+        tile_size=int(tile_size),
         tile_start=tile_start.astype(np.int32),
         tile_len=tile_len.astype(np.int32),
         tile_cell=tile_cell.astype(np.int32),
-        pair_a=pair_a.astype(np.int32),
-        pair_b=pair_b.astype(np.int32),
-        num_tile_pairs_total=total_pairs,
+        pair_a=pair_a.cpu().numpy(),
+        pair_b=pair_b.cpu().numpy(),
+        num_tile_pairs_total=pairs_total,
         num_candidates=num_candidates,
     )
 

@@ -84,7 +84,7 @@ def self_join_hostloop(
         work, _ = variance_reorder(pts, config.sample_frac)
 
     grid = build_grid(work, config.eps, config.k)
-    plan = build_tile_plan(grid, config.tile_size, config.sortidu)
+    plan = build_tile_plan(grid, config.tile_size, config.sortidu, device=dev)
     stats.num_nonempty_cells = grid.num_cells
     stats.num_tiles = plan.num_tiles
     stats.num_tile_pairs_total = plan.num_tile_pairs_total

@@ -243,8 +243,9 @@ class GridSnapshot:
             with obs.span("snapshot.grid", "plan"):
                 grid = build_grid(work, eps, config.k)  # eps=0-safe (unit bins)
             with obs.span("snapshot.tile_plan", "plan") as sp:
-                plan = build_tile_plan(grid, config.tile_size, config.sortidu)
-                sp.set(tiles=plan.num_tiles, pairs=plan.num_pairs)
+                plan = build_tile_plan(grid, config.tile_size, config.sortidu, device=dev)
+                sp.set(tiles=plan.num_tiles, pairs=plan.num_pairs, pairs_total=plan.num_tile_pairs_total,
+                       path="card" if dev.type == "cuda" else "cpu")
             index_eps = float(eps)
         return cls(
             config, pts, perm, work, index_eps, grid, plan,

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("distance_tile", "distance_tile_counts", "dense_tile", "dense_tile_fused", "flash_attention",
-           "flash_attention_wgmma")
+           "flash_attention_wgmma", "tile_plan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +65,10 @@ SIGNATURES = {
     },
     "flash_attention_wgmma": {
         "flash_attention_wgmma_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "tile_plan": {
+        "tile_plan_count": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+        "tile_plan_write": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
     },
 }
 

@@ -35,7 +35,9 @@ included, and launch no kernel.  Flash attention compares within 2e-5 in f32 and
 and at S >= 1024 within ``chip_smoke.ATTN_FULL_TOL`` (one bf16 step); each
 call must count one launch of the kernel its route names (bf16 with head
 widths that are multiples of 8: the tensor-core kernel; the rest: the
-CUDA-core kernel).
+CUDA-core kernel).  The index build's tile-pair list from
+``csrc/tile_plan.cu`` equals the CPU's plan field for field, order
+included, in two launches a build.
 """
 import dataclasses
 import sys
@@ -46,9 +48,10 @@ import pytest
 import torch
 
 from repro_torch import obs
-from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engine
+from repro_torch.core import EngineConfig, SelfJoinConfig, SelfJoinEngine, engine, grid
 from repro_torch.join import QueryService, SimilarityIndex
-from repro_torch.kernels import dense_tile, distance_tile, flash_attention
+from repro_torch.kernels import dense_tile, distance_tile, flash_attention, tile_plan
+from tile_plan_cases import CARD_CASES, make
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
@@ -127,6 +130,42 @@ def test_tile_size_above_the_limit_raises(cuda):
             wrapper(big, lens, args[2][:2] % 2, args[3][:2] % 2, eps=0.1, dim_block=8)
         with pytest.raises(ValueError, match="int32"):
             wrapper(args[0], args[1].long(), args[2], args[3], eps=0.1, dim_block=8)
+
+
+@pytest.mark.parametrize("sortidu", [True, False])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_tile_plan_kernel_equals_the_cpu(cuda, case, sortidu):
+    """The card's tile plan (two launches, no sort) is the CPU plan, bit for bit."""
+    d, eps, k, t = make(case)
+    g = grid.build_grid(d, eps, k)
+    before = tile_plan.LAUNCHES["tile_plan"]
+    got = grid.build_tile_plan(g, t, sortidu, device=cuda)
+    torch.cuda.synchronize()
+    assert tile_plan.LAUNCHES["tile_plan"] == before + 2
+    want = grid.build_tile_plan(g, t, sortidu, device="cpu")
+    for f in dataclasses.fields(want):
+        w, v = getattr(want, f.name), getattr(got, f.name)
+        if isinstance(w, np.ndarray):
+            assert v.dtype == w.dtype, f.name
+            np.testing.assert_array_equal(v, w, err_msg=f.name)
+        else:
+            assert v == w, f.name
+
+
+def test_tile_plan_wrapper_raises_on_wrong_dtypes(cuda):
+    """CUDA tables of the wrong dtype raise before any launch; right ones launch twice."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    tables = [torch.zeros(1, **i32), torch.ones(1, **i32), torch.zeros(1, device=cuda), torch.zeros(1, device=cuda),
+              torch.zeros(1, **i32), torch.ones(1, **i32), torch.tensor([0, 1], device=cuda), torch.zeros(1, **i32)]
+    before = tile_plan.LAUNCHES["tile_plan"]
+    assert tile_plan.tile_pairs(*tables, eps=0.1, sortidu=True)[0].tolist() == [0]
+    for i, wrong in enumerate((torch.int64, torch.int64, torch.float64, torch.float16, torch.int64, torch.int64,
+                               torch.int32, torch.int64)):
+        bad = list(tables)
+        bad[i] = bad[i].to(wrong)
+        with pytest.raises(ValueError):
+            tile_plan.tile_pairs(*bad, eps=0.1, sortidu=True)
+    assert tile_plan.LAUNCHES["tile_plan"] == before + 2
 
 
 @pytest.mark.parametrize("mode", ["indexed", "dense", "auto"])

@@ -18,7 +18,8 @@ from repro.core.snapshot import make_dense_plan as ref_make_dense_plan
 from repro.kernels import ops as ref_ops
 from repro_torch.core import batching, cost, grid, reorder
 from repro_torch.core.snapshot import make_dense_plan
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, tile_plan
+from tile_plan_cases import CPU_CASES, make
 
 
 def assert_same_dataclass(want, got):
@@ -51,6 +52,18 @@ def test_grid_and_plan_arrays_equal(dataset_case, sortidu, k, tile_size):
         t_p, l_p = ops.make_tiles(g_p.pts_sorted, p_p.tile_start, p_p.tile_len, tile_size, db)
         np.testing.assert_array_equal(t_p, t_r)
         np.testing.assert_array_equal(l_p, l_r)
+
+
+@pytest.mark.parametrize("sortidu", [True, False])
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_tile_plan_edge_cases_equal(case, sortidu):
+    """The plan's CPU path (``tile_plan.tile_pairs_plain``, no sort) against
+    the reference's expansion and lexsort: every field, order included."""
+    d, eps, k, t = make(case)
+    launches = dict(tile_plan.LAUNCHES)
+    want = ref_grid.build_tile_plan(ref_grid.build_grid(d, eps, k), t, sortidu)
+    assert_same_dataclass(want, grid.build_tile_plan(grid.build_grid(d, eps, k), t, sortidu, device="cpu"))
+    assert tile_plan.LAUNCHES == launches
 
 
 def test_make_tiles_device_matches_reference(dataset_case):

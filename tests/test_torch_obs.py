@@ -423,6 +423,9 @@ def test_index_build_phase_spans(execution, reorder):
     for e in got:
         assert e.cat == "plan" and e.depth == build.depth + 1
         assert build.ts_us <= e.ts_us and e.ts_us + e.dur_us <= build.ts_us + build.dur_us
+    plan = eng.snapshot.plan
+    assert cap.spans("snapshot.tile_plan")[0].attrs == {
+        "tiles": plan.num_tiles, "pairs": plan.num_pairs, "pairs_total": plan.num_tile_pairs_total, "path": "cpu"}
     lazy = ["snapshot.dense_tables"] * (execution == "dense") + ["snapshot.chunks"]
     with obs.capture() as cap:
         eng.count(0.05)
